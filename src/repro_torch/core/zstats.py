@@ -1,0 +1,250 @@
+"""Sliding-window z-normalization streams, built on the host in float64.
+
+Port of `repro.core.zstats` (the stream-prep half). Streams (SCAMP
+formulation, Zhu et al. ICDM'18):
+
+    mu[i]    = mean(T[i:i+m])
+    invn[i]  = 1 / ||T[i:i+m] - mu[i]||           (inverse centered norm)
+    df[0]=dg[0]=0
+    df[i]    = (T[i+m-1] - T[i-1]) / 2
+    dg[i]    = (T[i+m-1] - mu[i]) + (T[i-1] - mu[i-1])
+    cov0[k]  = <T[0:m]-mu[0], T[k:k+m]-mu[k]>
+
+    cov(i, j) = cov(i-1, j-1) + df[i]*dg[j] + df[j]*dg[i]
+    corr(i,j) = cov(i, j) * invn[i] * invn[j]
+    dist(i,j) = sqrt(2 m (1 - corr(i, j)))
+
+Degenerate windows are carried in `invn`: 0 for a flat window (corr 0),
+-1 for a window touching a NaN/Inf sample (masked by every sweep).
+
+The arithmetic is the reference's f64 numpy, line for line, and each
+stream is rounded ONCE to its dtype in numpy before it becomes a tensor —
+so the port's streams are bitwise equal to the reference's. Two rounding
+facts shape `_emit`: numpy's f64->f16 cast rounds once, while torch's goes
+through f32 (they differ near f16 midpoints); numpy has no bfloat16, and
+the reference's f64->bf16 goes through f32, so bf16 is f64->f32 in numpy
+then f32->bf16 in torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.precision import torch_dtype
+from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ZStats:
+    """Precomputed streams for a series of length n with window m."""
+
+    ts: torch.Tensor      # (n,)  the centered raw series
+    mu: torch.Tensor      # (l,)
+    invn: torch.Tensor    # (l,)
+    df: torch.Tensor      # (l,)
+    dg: torch.Tensor      # (l,)
+    cov0: torch.Tensor    # (l,)  cov of subsequence 0 against every k
+    window: int
+
+    @property
+    def n_subsequences(self) -> int:
+        return self.mu.shape[0]
+
+    def to(self, device) -> "ZStats":
+        """The same streams on another device."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in _ZFIELDS})
+
+
+_ZFIELDS = ("ts", "mu", "invn", "df", "dg", "cov0")
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossStats:
+    """Streams for an AB join of series A against series B.
+
+    Diagonals of the (l_a, l_b) rectangle are indexed by a SIGNED offset
+    k = j - i in [-(l_a-1), l_b); `cov0s[k + l_a - 1]` is the covariance at
+    the first cell of diagonal k — (0, k) for k >= 0, (-k, 0) for k < 0.
+    """
+
+    a: ZStats
+    b: ZStats
+    cov0s: torch.Tensor   # (l_a + l_b - 1,)
+
+    @property
+    def l_a(self) -> int:
+        return self.a.n_subsequences
+
+    @property
+    def l_b(self) -> int:
+        return self.b.n_subsequences
+
+    @property
+    def k_min(self) -> int:
+        return -(self.l_a - 1)
+
+    @property
+    def k_max(self) -> int:
+        return self.l_b
+
+    @property
+    def window(self) -> int:
+        return self.a.window
+
+    def to(self, device) -> "CrossStats":
+        return CrossStats(a=self.a.to(device), b=self.b.to(device),
+                          cov0s=self.cov0s.to(device))
+
+
+def _emit(x, dtype, device: torch.device) -> torch.Tensor:
+    """Round f64 `x` ONCE to `dtype` (see the module docstring for why in
+    numpy) and move it to `device`."""
+    x = np.asarray(x, np.float64)
+    dt = torch_dtype(dtype)
+    if dt == torch.bfloat16:
+        return torch.from_numpy(x.astype(np.float32)).to(device).to(dt)
+    np_dt = torch.empty((), dtype=dt).numpy().dtype
+    return torch.from_numpy(np.ascontiguousarray(x.astype(np_dt))).to(device)
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A numpy array (any float dtype, including an ml_dtypes bfloat16 the
+    reference hands out) -> a tensor with the same bits, in memory of its
+    own (the reference's buffers are read-only)."""
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def self_cross(stats: ZStats) -> CrossStats:
+    """View a self-join's streams as the AB rectangle A == B (cov is
+    symmetric: the negative seeds are the mirrored first row)."""
+    cov0s = torch.cat([stats.cov0[1:].flip(0), stats.cov0])
+    return CrossStats(a=stats, b=stats, cov0s=cov0s)
+
+
+def cross_stats_from_parts(stats_a: ZStats, wa, stats_b: ZStats, wb,
+                           out_dtype=None, seed_dtype=None) -> CrossStats:
+    """Assemble a `CrossStats` from per-series `(stats, centered windows)`
+    parts. The seeds are exact f64 centered-window dots, rounded once to
+    `seed_dtype` (default `out_dtype`), on the device of `stats_a`."""
+    wa = np.asarray(wa, np.float64)
+    wb = np.asarray(wb, np.float64)
+    neg = wa[1:] @ wb[0]            # k = -1 .. -(l_a-1), start cells (-k, 0)
+    pos = wb @ wa[0]                # k = 0 .. l_b-1,     start cells (0, k)
+    if seed_dtype is None:
+        seed_dtype = out_dtype
+    cov0s = _emit(np.concatenate([neg[::-1], pos]), seed_dtype,
+                  stats_a.mu.device)
+    return CrossStats(a=stats_a, b=stats_b, cov0s=cov0s)
+
+
+def compute_cross_stats_host(ts_a, ts_b, window: int, out_dtype=None,
+                             seed_dtype=None, *, device=None) -> CrossStats:
+    """AB-join streams built host-side in f64; each side's centered-window
+    matrix is built once and reused for the seed dots. Either side may be
+    as short as one window."""
+    m = int(window)
+    dev = resolve_device(device)
+    sa, wa = compute_stats_host(ts_a, m, out_dtype=out_dtype,
+                                seed_dtype=seed_dtype, min_subsequences=1,
+                                return_centered_windows=True, device=dev)
+    sb, wb = compute_stats_host(ts_b, m, out_dtype=out_dtype,
+                                seed_dtype=seed_dtype, min_subsequences=1,
+                                return_centered_windows=True, device=dev)
+    return cross_stats_from_parts(sa, wa, sb, wb, out_dtype=out_dtype,
+                                  seed_dtype=seed_dtype)
+
+
+def compute_stats_host(ts, window: int, out_dtype=None, seed_dtype=None,
+                       min_subsequences: int | None = None, *,
+                       return_centered_windows: bool = False, device=None):
+    """Build the NATSA streams in float64 on the host and emit `out_dtype`
+    tensors (default f32) on `device` (default the CUDA card).
+
+    `seed_dtype` overrides the dtype of `cov0` only. `min_subsequences`
+    relaxes the self-join check n >= 2m to n >= m + min_subsequences - 1.
+    `return_centered_windows=True` returns `(stats, w)` with `w` the f64
+    (l, m) centered-window matrix. NaN/Inf samples mask every window that
+    touches them with the `invn = -1` sentinel; other windows keep
+    bit-identical statistics.
+    """
+    dev = resolve_device(device)
+    t = np.asarray(ts, np.float64)
+    if t.ndim != 1:
+        raise ValueError(f"time series must be 1-D, got shape {t.shape}")
+    m = int(window)
+    n = t.shape[0]
+    min_n = 2 * m if min_subsequences is None else m + int(min_subsequences) - 1
+    if n < min_n:
+        raise ValueError(f"series too short: n={n} < {min_n} "
+                         f"(window={m}, min_subsequences={min_subsequences})")
+    finite = np.isfinite(t)
+    masked = None
+    if not finite.all():
+        # gaps are filled with the finite mean so every cumsum/dot stays
+        # finite; windows touching a gap get the invn = -1 sentinel below
+        fill = t[finite].mean() if finite.any() else 0.0
+        t = np.where(finite, t, fill)
+        nbad = np.concatenate([[0], np.cumsum(~finite)])
+        masked = (nbad[m:] - nbad[:-m]) > 0
+    t = t - t.mean()
+    l = n - m + 1
+    csum = np.concatenate([[0.0], np.cumsum(t)])
+    mu = (csum[m:] - csum[:-m]) / m
+    view = np.lib.stride_tricks.sliding_window_view(t, m)
+    w = view - mu[:, None]                # exact two-pass centering
+    norm = np.sqrt(np.einsum("lm,lm->l", w, w))
+    # RELATIVE flat-window guard: cumsum roundoff leaves ~1e-15-relative
+    # residues in constant windows; scale^2 = norm^2 + m*mu^2
+    scale2 = norm * norm + m * mu * mu
+    flat = norm * norm <= 1e-16 * np.maximum(scale2, 1e-300)
+    invn = np.where(~flat & (norm > 0), 1.0 / np.maximum(norm, 1e-300), 0.0)
+    if masked is not None:
+        invn = np.where(masked, -1.0, invn)   # missing-data sentinel
+    tail, head = t[m:], t[: l - 1]
+    df = np.concatenate([[0.0], (tail[: l - 1] - head) / 2.0])
+    dg = np.concatenate([[0.0], (tail[: l - 1] - mu[1:]) + (head - mu[:-1])])
+    cov0 = w @ w[0]
+    sdt = out_dtype if seed_dtype is None else seed_dtype
+    stats = ZStats(ts=_emit(t, out_dtype, dev), mu=_emit(mu, out_dtype, dev),
+                   invn=_emit(invn, out_dtype, dev),
+                   df=_emit(df, out_dtype, dev), dg=_emit(dg, out_dtype, dev),
+                   cov0=_emit(cov0, sdt, dev), window=m)
+    if return_centered_windows:
+        return stats, w
+    return stats
+
+
+def stats_from_arrays(fields: dict, window: int, device=None) -> ZStats:
+    """Carry-over: build the port's `ZStats` from a reference `ZStats` read
+    out as numpy arrays by field name (`ts`, `mu`, `invn`, `df`, `dg`,
+    `cov0`), bits unchanged, so both packages sweep identical streams."""
+    dev = resolve_device(device)
+    return ZStats(window=int(window),
+                  **{f: _tensor(fields[f], dev) for f in _ZFIELDS})
+
+
+def cross_stats_from_arrays(fields: dict, window: int,
+                            device=None) -> CrossStats:
+    """`stats_from_arrays` for a `CrossStats`: `fields` holds `a` and `b`
+    (each a field dict as above) and `cov0s`."""
+    dev = resolve_device(device)
+    return CrossStats(a=stats_from_arrays(fields["a"], window, dev),
+                      b=stats_from_arrays(fields["b"], window, dev),
+                      cov0s=_tensor(fields["cov0s"], dev))
+
+
+def corr_to_dist(corr: torch.Tensor, window: int) -> torch.Tensor:
+    """Pearson correlation -> z-normalized Euclidean distance."""
+    return torch.sqrt(torch.clamp(2.0 * window * (1.0 - corr), min=0.0))
+
+
+def dist_to_corr(dist: torch.Tensor, window: int) -> torch.Tensor:
+    return 1.0 - dist * dist / (2.0 * window)
