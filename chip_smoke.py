@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit (no card -> exit 1);
-  2. build: the CUDA source of the NATSA kernel, built with nvcc for
-     sm_90a, with ptxas' register / spill lines;
+  2. build: both CUDA sources (the NATSA kernel and the flash-attention
+     kernel), one nvcc each, started together, for sm_90a, with ptxas'
+     register / spill lines;
   3. the NATSA kernel against its plain PyTorch version on the same CUDA
      tensors, on small cases (self-join, AB with and without an exclusion
      split, NaN gaps, bf16 streams): within 1e-4 in correlation, indices
@@ -16,11 +17,27 @@ Phases, each printing one JSON line:
      motif pair, checked against an f64 exact profile of 64 sampled rows;
   5. the main path at full size, AB join: `ab_join(a, b, 128,
      return_b=True)` with |a| = 131072 (epilepsy-128k), |b| = 32768;
-  6. `{"kernels": [...]}`: each ported kernel with its launches on the main
-     path, its error against the plain version and its times beside its
+  6. the flash-attention kernel against its plain version on the card: the
+     reference's shape table and shapes off the kernel's 128-row tile in
+     f32 (2e-4), bf16 with a bf16 output (3e-2), and block-size
+     invariance (1e-5);
+  7. the flash path at full width: `flash_attention` at llama3-8b's
+     prefill_32k shape (B=1, H=32, S=32768, D=128, bf16, causal; K/V made
+     with 8 heads and repeated to 32), each output element within
+     2^-7 |plain| + 1e-5 of the plain version's (and the whole within
+     1e-2 x max|plain|), timed beside its bound and beside PyTorch's
+     `scaled_dot_product_attention` (a yardstick only); a planted fault
+     (head 0's keys < 64 dropped for rows past 4096) must fail that
+     element check;
+  8. the band engine (`plan_sweep(backend="engine")`) against the kernel
+     path on the card, self-join n=65536 m=512 and AB 32768x8192 m=128,
+     under the full-size near-tie rule at 1e-3;
+  9. `{"kernels": [...]}`: each ported kernel with its launches on the main
+     paths, its error against the plain version and its times beside its
      bound.
-The last line is `{"ok": true, "device": {...}}`. Any failed check raises
-and the script exits non-zero without it. Imports nothing of JAX.
+Every kernel launch counter is set to 0 just before each path and read just
+after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
+raises and the script exits non-zero without it. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +65,26 @@ DEVICE = "cuda"
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/natsa_mp.cu"
 KERNEL_REPLACES = "src/repro/kernels/natsa_mp.py:113"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attn.py:27"
+SOURCES = {"natsa_mp": KERNEL_SOURCE, "flash_attn": FLASH_SOURCE}
+
+BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+# llama3-8b (src/repro/configs/llama3_8b.py: 32 heads, 8 KV heads, head_dim
+# 128) at the prefill_32k shape (configs/base.py:162) with one sequence
+FLASH_B, FLASH_H, FLASH_KV_H, FLASH_S, FLASH_D = 1, 32, 8, 32768, 128
+TOL_FLASH_F32 = 2e-4  # the reference's own (tests/test_flash_and_streaming.py)
+TOL_FLASH_BF16 = 3e-2
+TOL_FLASH_BLOCKS = 1e-5
+# full size, per element: |o - plain| <= 2^-7 |plain| + 1e-5. Both sides
+# round the same f32 value (up to summation order) to bf16, which can differ
+# by one bf16 ulp, at most 2^-7 of the value; 1e-5 covers values near 0.
+TOL_FLASH_REL, TOL_FLASH_ABS = 2.0 ** -7, 1e-5
+TOL_FLASH_FULL = 1e-2  # x max|plain|, over the whole output
+FAULT_ROW0 = 4096      # the planted fault's first row
+FAULT_LATE_ROW0 = 16384  # its late rows, read on their own
+ENGINE_SELF_N, ENGINE_SELF_M = 65536, 512
+ENGINE_AB_NA, ENGINE_AB_NB, ENGINE_AB_M = 32768, 8192, 128
 
 
 def emit(obj) -> None:
@@ -150,17 +187,37 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
+def reset_counts() -> None:
+    """Every kernel's launch counter to 0 (just before a path is driven)."""
+    from repro_torch.kernels import flash_attn, natsa_mp
+
+    natsa_mp.LAUNCHES = 0
+    flash_attn.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import flash_attn, natsa_mp
+
+    return {"natsa_mp": natsa_mp.LAUNCHES, "flash_attn": flash_attn.LAUNCHES}
+
+
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load("natsa_mp")
-    seconds = time.perf_counter() - t0
-    info = _build.BUILD_LOGS["natsa_mp"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "source": KERNEL_SOURCE, "seconds": seconds,
-          "cached": info["cached"], "ptxas": ptxas})
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
+        list(pool.map(_build.load, SOURCES))
+    wall = time.perf_counter() - t0
+    for name, source in SOURCES.items():
+        info = _build.BUILD_LOGS[name]
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if any(k in ln for k in ("registers", "spill",
+                                          "Compiling entry"))]
+        emit({"phase": "build", "source": source,
+              "seconds": info["seconds"], "all_builds_wall_s": wall,
+              "cached": info["cached"], "ptxas": ptxas})
 
 
 def _self_case(ts, m, dtype=None):
@@ -293,7 +350,6 @@ def phase_self() -> dict:
     from repro_torch.core import matrix_profile
     from repro_torch.core.matrix_profile import default_exclusion
     from repro_torch.core.zstats import compute_stats_host, dist_to_corr
-    from repro_torch.kernels import natsa_mp
 
     rng = np.random.default_rng(SEED + 1)
     n, m = SELF_N, SELF_M
@@ -301,14 +357,15 @@ def phase_self() -> dict:
     ts = plant(walk(rng, n), pa, pb, m)
     excl = default_exclusion(m)
 
-    natsa_mp.LAUNCHES = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = matrix_profile(ts, m, device=DEVICE)
     p, i = res.p, res.i
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
-    launches = natsa_mp.LAUNCHES
+    counts = read_counts()
+    launches = counts["natsa_mp"]
     peak = torch.cuda.max_memory_allocated()
     check(launches > 0, "self-join main path launched no kernel")
     check(p.shape == (n - m + 1,) and p.dtype == torch.float32
@@ -339,6 +396,7 @@ def phase_self() -> dict:
     cells = (l - excl) * (l - excl + 1) / 2
     kt = _time_kernel(args, kw, cells, ts, ts, m)
     out = {"phase": "main_self", "n": n, "m": m, "launches": launches,
+           "counts": counts,
            "motif": [pa, pb], "motif_corr": motif_corr,
            "oracle_rows": SAMPLED_ROWS, "oracle_max_corr_err": oracle_err,
            "host_prep_s": prep, "h2d_s": h2d, "e2e_s": e2e,
@@ -352,7 +410,6 @@ def phase_ab() -> dict:
 
     from repro_torch.core import ab_join
     from repro_torch.core.zstats import compute_cross_stats_host, dist_to_corr
-    from repro_torch.kernels import natsa_mp
 
     rng = np.random.default_rng(SEED + 3)
     m = AB_M
@@ -360,14 +417,15 @@ def phase_ab() -> dict:
     pa, pb = (2 * AB_NA) // 3, AB_NB // 4
     b = plant(b, pa, pb, m, other=a)
 
-    natsa_mp.LAUNCHES = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = ab_join(a, b, m, return_b=True, device=DEVICE)
     p, i, bp, bi = res.p, res.i, res.b_p, res.b_i
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
-    launches = natsa_mp.LAUNCHES
+    counts = read_counts()
+    launches = counts["natsa_mp"]
     peak = torch.cuda.max_memory_allocated()
     la, lb = AB_NA - m + 1, AB_NB - m + 1
     check(launches > 0, "AB main path launched no kernel")
@@ -399,7 +457,8 @@ def phase_ab() -> dict:
     (args, kw), = _ab_cases(b, a, m, 0)
     kt = _time_kernel(args, kw, float(la) * lb, b, a, m)
     out = {"phase": "main_ab", "n_a": AB_NA, "n_b": AB_NB, "m": m,
-           "launches": launches, "motif": [pa, pb], "motif_corr": motif_corr,
+           "launches": launches, "counts": counts, "motif": [pa, pb],
+           "motif_corr": motif_corr,
            "oracle_rows": SAMPLED_ROWS, "oracle_max_corr_err_a": err_a,
            "oracle_max_corr_err_b": err_b, "host_prep_s": prep, "h2d_s": h2d,
            "e2e_s": e2e, "peak_device_bytes": peak, **kt}
@@ -407,20 +466,269 @@ def phase_ab() -> dict:
     return out
 
 
+def _flash_inputs(rng, shape, dtype, kv_heads=None):
+    """Seeded q, k, v on the card; K/V made with `kv_heads` heads and
+    repeated to the query heads, as grouped-query attention shares them."""
+    import torch
+
+    b, h, s, d = shape
+    kvh = h if kv_heads is None else kv_heads
+    q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, kvh, s, d),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    q, k, v = (x.to(DEVICE).to(dtype) for x in (q, k, v))
+    if kvh != h:
+        k, v = (x.repeat_interleave(h // kvh, dim=1).contiguous()
+                for x in (k, v))
+    return q, k, v
+
+
+def phase_flash_cases() -> float:
+    """The flash kernel against its plain version on the card: the
+    reference's table (tests/test_flash_and_streaming.py:12-50)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    rng = np.random.default_rng(SEED + 5)
+    worst = 0.0
+    table = [(2, 2, 128, 32, 64, 64, True), (1, 4, 256, 16, 128, 64, True),
+             (2, 1, 128, 64, 32, 128, True), (1, 2, 128, 32, 64, 64, False),
+             (1, 1, 64, 8, 64, 64, True),
+             # S % 128 != 0: the kernel's masked partial tile
+             (1, 2, 96, 40, 32, 48, True), (1, 1, 96, 24, 16, 96, False),
+             (2, 1, 80, 128, 16, 40, True)]
+    for b, h, s, d, bq, bk, causal in table:
+        q, k, v = _flash_inputs(rng, (b, h, s, d), torch.float32)
+        out = flash_attn.flash_attention(q, k, v, bq=bq, bk=bk, causal=causal)
+        torch.cuda.synchronize()
+        plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+        err = float((out - plain).abs().max())
+        emit({"phase": "flash_vs_plain", "case": [b, h, s, d, bq, bk, causal],
+              "dtype": "float32", "max_abs_err": err, "tol": TOL_FLASH_F32})
+        check(err <= TOL_FLASH_F32, f"flash f32 case {b, h, s, d}: {err}")
+        worst = max(worst, err)
+    q, k, v = _flash_inputs(rng, (1, 2, 128, 32), torch.bfloat16)
+    out = flash_attn.flash_attention(q, k, v, bq=64, bk=64)
+    plain = flash_attn.flash_attention_plain(q, k, v)
+    err = float((out.float() - plain.float()).abs().max())
+    emit({"phase": "flash_vs_plain", "case": [1, 2, 128, 32, 64, 64, True],
+          "dtype": "bfloat16", "out_dtype": str(out.dtype),
+          "max_abs_err": err, "tol": TOL_FLASH_BF16})
+    check(out.dtype == torch.bfloat16 and err <= TOL_FLASH_BF16,
+          f"flash bf16 case: {out.dtype}, {err}")
+    q, k, v = _flash_inputs(rng, (1, 2, 128, 16), torch.float32)
+    a = flash_attn.flash_attention(q, k, v, bq=32, bk=32)
+    b = flash_attn.flash_attention(q, k, v, bq=128, bk=64)
+    plain = flash_attn.flash_attention_plain(q, k, v)
+    inv = float((a - b).abs().max())
+    err = max(float((a - plain).abs().max()), float((b - plain).abs().max()))
+    emit({"phase": "flash_vs_plain", "case": "block_invariance_32x32_128x64",
+          "dtype": "float32", "blocks_max_abs_diff": inv,
+          "max_abs_err": err, "tol": TOL_FLASH_BLOCKS})
+    check(inv <= TOL_FLASH_BLOCKS and err <= TOL_FLASH_F32,
+          f"flash block invariance {inv}, vs plain {err}")
+    return max(worst, err)
+
+
+def _flash_err_ratio(out, plain) -> float:
+    """max over elements of |out - plain| / (2^-7 |plain| + 1e-5): at most
+    1 when every element is within one bf16 rounding of the plain one."""
+    return float(((out.float() - plain).abs()
+                  / (TOL_FLASH_REL * plain.abs() + TOL_FLASH_ABS)).max())
+
+
+def _planted_fault(q, k, v, plain_tail, tile: int = 64) -> dict:
+    """What the full-size checks read for a kernel that drops head 0's
+    first KV tile (keys < `tile`) on rows >= FAULT_ROW0: that output is
+    computed here in plain PyTorch and held against the plain version's
+    rows `plain_tail` under both checks."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import NEG_INF
+
+    s, d = q.shape[2], q.shape[3]
+    qh, kh, vh = (x[0, 0].float() for x in (q, k, v))
+    parts = []
+    for r0 in range(FAULT_ROW0, s, 4096):
+        r1 = min(s, r0 + 4096)
+        logits = (qh[r0:r1] @ kh[tile:r1].T) / d ** 0.5
+        pos = torch.arange(r0, r1, device=q.device)[:, None]
+        key = torch.arange(tile, r1, device=q.device)[None, :]
+        logits.masked_fill_(key > pos, NEG_INF)
+        parts.append((torch.softmax(logits, dim=-1) @ vh[tile:r1])
+                     .to(q.dtype))
+    faulty = torch.cat(parts)
+
+    def reading(rows):
+        f, p = faulty[rows].float(), plain_tail[rows]
+        bad = (f - p).abs() > TOL_FLASH_REL * p.abs() + TOL_FLASH_ABS
+        return {"element_ratio": _flash_err_ratio(f, p),
+                "elements_over": int(bad.sum()), "elements": bad.numel(),
+                "max_abs_err": float((f - p).abs().max())}
+
+    late = FAULT_LATE_ROW0 - FAULT_ROW0
+    return {"fault": f"head 0, keys < {tile} dropped for rows >= "
+                     f"{FAULT_ROW0}", **reading(slice(None)),
+            f"rows_from_{FAULT_LATE_ROW0}": reading(slice(late, None))}
+
+
+def phase_flash() -> dict:
+    """`flash_attention` at llama3-8b width, prefill_32k, one sequence."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    b, h, s, d = FLASH_B, FLASH_H, FLASH_S, FLASH_D
+    q, k, v = _flash_inputs(np.random.default_rng(SEED + 6), (b, h, s, d),
+                            torch.bfloat16, kv_heads=FLASH_KV_H)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = flash_attn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attn"] > 0, "flash path launched no kernel")
+    check(out.shape == (b, h, s, d) and out.dtype == torch.bfloat16
+          and out.device.type == DEVICE, "flash output shape/dtype")
+    check(bool(torch.isfinite(out).all()), "flash output has non-finite")
+
+    ms = cuda_ms(lambda: flash_attn.flash_attention(q, k, v), 3)
+    plain_box = []
+    plain_ms = cuda_ms(lambda: plain_box.append(
+        flash_attn.flash_attention_plain(q, k, v)), 1)
+    plain = plain_box[0].float()
+    err = float((out.float() - plain).abs().max())
+    scale = float(plain.abs().max())
+    ratio = _flash_err_ratio(out, plain)
+    check(ratio <= 1.0 and err <= TOL_FLASH_FULL * scale,
+          f"flash full size vs plain: element ratio {ratio}, {err} vs "
+          f"{TOL_FLASH_FULL} x {scale}")
+    fault = _planted_fault(q, k, v, plain[0, 0, FAULT_ROW0:])
+    for part in (fault, fault[f"rows_from_{FAULT_LATE_ROW0}"]):
+        part["within_whole_output_limit"] = (
+            part["max_abs_err"] <= TOL_FLASH_FULL * scale)
+    check(fault["element_ratio"] > 1.0,
+          f"the full-size check passes a planted fault: {fault}")
+    del plain, plain_box
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa(q, k, v, is_causal=True)                       # warm-up
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 3)
+    flops = 4.0 * b * h * d * s * s / 2
+    nbytes = 4.0 * b * h * s * d * q.element_size()
+    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
+    out = {"phase": "main_flash", "shape": [b, h, s, d], "dtype": "bfloat16",
+           "causal": True, "kv_heads": FLASH_KV_H, "launches":
+           counts["flash_attn"], "counts": counts, "e2e_s": e2e,
+           "peak_device_bytes": peak, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes,
+           "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
+           "max_abs_err": err, "max_abs_plain": scale,
+           "tol": TOL_FLASH_FULL * scale, "element_ratio": ratio,
+           "planted_fault": fault}
+    emit(out)
+    return out
+
+
+def _plan_corr(res, kind: str, m: int):
+    """A SweepResult in correlation space, in `compare`'s layout: (row side
+    corr, idx, column side corr, idx) — right/left for a self-join, A/B for
+    an AB join."""
+    import torch
+
+    from repro_torch.core.zstats import dist_to_corr
+
+    def c(dist):      # no neighbour (inf) -> the kernel's NEG
+        return torch.where(torch.isfinite(dist),
+                           dist_to_corr(dist.double(), m), -2.0).float()
+
+    if kind == "self":
+        return (c(res.right_dist), res.right_index, c(res.left_dist),
+                res.left_index)
+    return c(res.dist), res.index, c(res.dist_b), res.index_b
+
+
+def phase_engine() -> list[dict]:
+    """The band engine against the kernel path on the card, at a depth cut
+    to fit the script's time: both sides of each sweep under the full-size
+    near-tie rule, in reported and in exact f64 correlation."""
+    import torch
+
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.zstats import compute_stats_host
+
+    rng = np.random.default_rng(SEED + 7)
+    outs = []
+    ts = walk(rng, ENGINE_SELF_N)
+    a, b = walk(rng, ENGINE_AB_NA), walk(rng, ENGINE_AB_NB)
+    cases = [("self", ENGINE_SELF_M, (ts,)), ("ab", ENGINE_AB_M, (a, b))]
+    for kind, m, series in cases:
+        ls = [len(x) - m + 1 for x in series]
+        got = {}
+        for backend in ("engine", None):
+            plan = plan_mod.plan_sweep(m, *ls, backend=backend,
+                                       harvest="both", device=DEVICE)
+            stats = (compute_stats_host(series[0], m, device=DEVICE)
+                     if kind == "self"
+                     else plan_mod.cross_stats_for(plan, *series))
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = plan_mod.execute(plan, stats)
+            torch.cuda.synchronize()
+            got[plan.backend] = (res, time.perf_counter() - t0,
+                                 read_counts())
+        (eng, eng_s, eng_counts), (ker, ker_s, ker_counts) = \
+            got["engine"], got["kernel"]
+        check(eng_counts["natsa_mp"] == 0 and ker_counts["natsa_mp"] > 0,
+              f"{kind}: engine/kernel launch counts {eng_counts} "
+              f"{ker_counts}")
+        ts_rows, ts_cols = (series[0], series[0]) if kind == "self" \
+            else series
+        res = compare_full_size(_plan_corr(ker, kind, m),
+                                _plan_corr(eng, kind, m), ts_rows, ts_cols,
+                                m, 0)
+        check(res["max_abs_err"] <= TOL_ORACLE and res["tie_violations"] == 0
+              and res["exact_pair_violations"] == 0,
+              f"{kind}: engine vs kernel {res}")
+        out = {"phase": "engine_vs_kernel", "kind": kind,
+               "n": [len(x) for x in series], "m": m,
+               "engine_ms": 1e3 * eng_s, "kernel_path_ms": 1e3 * ker_s,
+               "engine_counts": eng_counts, "kernel_counts": ker_counts,
+               "vs_kernel": res}
+        emit(out)
+        outs.append(out)
+    return outs
+
+
 def main() -> None:
     import torch
 
+    # the plain versions' f32 products run in full f32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name, smi = phase_device()
     phase_build()
     small_err = phase_kernel_cases()
     s = phase_self()
     ab = phase_ab()
+    flash_err = phase_flash_cases()
+    fl = phase_flash()
+    phase_engine()
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": s["launches"] + ab["launches"],
         "launches_by_path": {"matrix_profile": s["launches"],
-                             "ab_join": ab["launches"]},
+                             "ab_join": ab["launches"],
+                             "flash_attention": fl["counts"]["natsa_mp"]},
         "max_abs_err": small_err,
         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
         "bound_by": s["bound_by"], "library_ms": None,
@@ -428,6 +736,19 @@ def main() -> None:
         "ab": {"ms": ab["ms"], "plain_ms": ab["plain_ms"],
                "bound_ms": ab["bound_ms"], "bound_by": ab["bound_by"],
                "shape": f"ab n_a={AB_NA} n_b={AB_NB} m={AB_M}"},
+    }, {
+        "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": fl["launches"],
+        "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
+                             "ab_join": ab["counts"]["flash_attn"],
+                             "flash_attention": fl["launches"]},
+        "max_abs_err": flash_err,
+        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"],
+        "shape": (f"B={FLASH_B} H={FLASH_H} S={FLASH_S} D={FLASH_D} bf16 "
+                  "causal"),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,26 +1,33 @@
 """Declarative sweep planning: one plan + executor behind every entry point.
 
 Port of `repro.core.plan`. Every entry point builds a frozen `SweepPlan`
-with `plan_sweep(...)` and hands it to `execute(...)`. The port has one
-backend so far, the CUDA NATSA kernel ("kernel"), and `backend=None`
-resolves to it. What the reference plans onto other backends raises
+with `plan_sweep(...)` and hands it to `execute(...)`. Two backends are
+ported: the CUDA NATSA kernel ("kernel") and the band engine ("engine", the
+plain-tensor sweep of `core.matrix_profile`). `backend=None` resolves to
+the kernel unless the call asks for what only the engine does — a
+non-default `band`, `clamp_rows=False`, a `reseed_every` other than its
+default or None, or `accum="float64"` — and the plan records the choice.
+(The reference's planner picks its engine by default; the port's hot path
+is the kernel.) What the reference plans onto other sweeps raises
 `NotImplementedError` here, naming the ROADMAP.md item that brings it,
 rather than quietly taking another path:
 
-  * `backend="engine"`, `"rowstream"`, `"distributed"`;
+  * `backend="rowstream"`, `"distributed"`;
   * `k > 1` (the reference plans a fallback to its band engine);
   * `normalize=False` and batched plans (`batch=`);
-  * a non-default `band` or `clamp_rows`, and a `reseed_every` other than
-    its default or None: the CUDA kernel, like the TPU kernel it
-    replaces, never reseeds, so the default is recorded for plan parity
-    and any other period would be silently ignored.
+  * 16-bit self-join streams on the engine (the reference's tile sweep);
+  * on the kernel backend, a non-default `band` or `clamp_rows`, and a
+    `reseed_every` other than its default or None: the CUDA kernel, like
+    the TPU kernel it replaces, never reseeds, so the default is recorded
+    for plan parity and any other period would be silently ignored.
 
-Kept from the reference: AB orientation (`swap_ab`, the short side on
-rows), the exclusion default, the harvest spec, the precision guard rails,
-and `col_tile` resolved as the reference resolves it so plans compare
-field by field — the CUDA kernel accumulates columns in one flat array and
-does not read it. `interpret` becomes `device`: the device the streams,
-the sweep and the result live on.
+Kept from the reference: AB orientation (`swap_ab`, the short side on rows
+for the kernel; the engine's row clamp makes it moot), the exclusion
+default, the harvest spec, the precision guard rails, and `col_tile`
+resolved as the reference resolves it so plans compare field by field —
+the CUDA kernel accumulates columns in one flat array and does not read
+it; the engine banks its column state by it. `interpret` becomes
+`device`: the device the streams, the sweep and the result live on.
 """
 
 from __future__ import annotations
@@ -30,13 +37,13 @@ import dataclasses
 import torch
 
 from repro_torch.core.matrix_profile import (
-    DEFAULT_BAND, DEFAULT_RESEED, default_exclusion,
+    DEFAULT_BAND, DEFAULT_RESEED, default_exclusion, profile_distance,
 )
 from repro_torch.core.precision import (
     DEFAULT_PRECISION, PrecisionSpec, as_precision,
 )
 from repro_torch.core.result import HarvestSpec
-from repro_torch.core.zstats import CrossStats, ZStats, corr_to_dist
+from repro_torch.core.zstats import CrossStats, ZStats
 from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT
 from repro_torch.utils.device import resolve_device
 
@@ -44,21 +51,20 @@ BACKENDS = ("engine", "rowstream", "kernel", "distributed")
 
 # what is not ported yet -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "engine": "the band engine (ROADMAP.md §A1)",
-    "band": ("the band engine's band, clamp_rows and reseed_every options "
-             "(ROADMAP.md §A1)"),
     "rowstream": "the rowstream AB sweep (ROADMAP.md §A2)",
     "distributed": "distributed rounds (ROADMAP.md §A6)",
     "topk": "exact top-k harvests, k > 1 (ROADMAP.md §A2)",
     "nonnorm": "non-normalized sweeps, normalize=False (ROADMAP.md §A2)",
     "batch": "batched plans (ROADMAP.md §A2)",
+    "tile": ("the reduced-precision self-join tile sweep that 16-bit streams "
+             "take on the band engine, tile_profile_from_stats "
+             "(ROADMAP.md §A2)"),
 }
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{_NOT_PORTED[what]} is not ported to "
-                               "repro_torch yet; the port sweeps through "
-                               "the CUDA kernel backend only")
+                               "repro_torch yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +75,12 @@ class SweepPlan:
     executor sweeps the transposed rectangle (short side on rows) and maps
     the outputs back. `k_min/k_max` are the signed diagonal span. `it`/`dt`
     pad the streams as the reference pads them; `col_tile` is the
-    reference's column-bank policy, resolved identically and unused by the
-    CUDA kernel (one flat column accumulator). `band`, `clamp_rows`,
-    `n_bands` and `reseed_every` belong to backends not yet ported; the
-    planner accepts only their defaults (and `reseed_every=None`).
+    reference's column-bank policy, resolved identically; the CUDA kernel
+    does not read it (one flat column accumulator), the engine banks its
+    AB column state by it. `band`, `clamp_rows` and `reseed_every` are the
+    band engine's; a kernel plan holds their defaults (or
+    `reseed_every=None`). `n_bands` belongs to distributed plans, not yet
+    ported.
     """
 
     # -- geometry ----------------------------------------------------------
@@ -160,12 +168,17 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
     """Planner: fill in every sweep decision. `l_a`/`l_b` are SUBSEQUENCE
     counts (n - window + 1). `device=None` is the CUDA card and raises on a
     host without one. Rules pinned here:
-      * `backend=None` -> "kernel"; the other backends, `k > 1`,
-        `normalize=False`, `batch`, a non-default `band`/`clamp_rows` and
-        a `reseed_every` other than its default or None raise
-        `NotImplementedError`;
-      * the kernel accumulates in f32 and streams f32/bf16/f16:
-        `accum="float64"` and f64 streams raise `ValueError`.
+      * `backend=None` -> "engine" where the call asks for a non-default
+        `band`, `clamp_rows=False`, a `reseed_every` other than its default
+        or None, or `accum="float64"`; else "kernel";
+      * the kernel accumulates in f32 (`accum="float64"` raises
+        `ValueError`) and reads f32/bf16/f16 streams: f64 streams are
+        rounded to f32 once before the launch, as the reference's kernel
+        rounds them on load;
+      * the kernel takes none of the engine's band options
+        (`NotImplementedError`), and the engine's 16-bit self-join tile
+        sweep, `k > 1`, `normalize=False`, `batch` and the other backends
+        are not ported (`NotImplementedError`).
     """
     m = int(window)
     prec = as_precision(precision)
@@ -180,11 +193,14 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
     else:
         spec = HarvestSpec(sides=harvest, k=int(k))
 
+    band_options = (band != DEFAULT_BAND or clamp_rows is not True
+                    or reseed_every not in (DEFAULT_RESEED, None))
     if backend is None:
-        backend = "kernel"
+        backend = ("engine" if band_options or prec.accum != "float32"
+                   else "kernel")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if backend != "kernel":
+    if backend in ("rowstream", "distributed"):
         raise _not_ported(backend)
     if spec.k > 1:
         raise _not_ported("topk")
@@ -192,19 +208,22 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
         raise _not_ported("nonnorm")
     if batch is not None:
         raise _not_ported("batch")
-    if (band != DEFAULT_BAND or clamp_rows is not True
-            or reseed_every not in (DEFAULT_RESEED, None)):
-        raise _not_ported("band")
-    if prec.accum != "float32":
-        raise ValueError(f"backend 'kernel' accumulates in f32; "
-                         f"accum={prec.accum!r} is engine/rowstream-only")
-    if prec.stream == "float64":
-        raise ValueError("the CUDA kernel streams float32, bfloat16 or "
-                         "float16; stream='float64' is engine-only")
+    if backend == "kernel":
+        if band_options:
+            raise NotImplementedError(
+                "the band engine's band, clamp_rows and reseed_every options "
+                "are not the CUDA kernel's: it never reseeds its f32 "
+                "covariance carry; plan backend='engine' (or leave "
+                "backend=None) for them")
+        if prec.accum != "float32":
+            raise ValueError(f"backend 'kernel' accumulates in f32; "
+                             f"accum={prec.accum!r} is engine-only")
+    elif kind == "self" and prec.reduced_stream:
+        raise _not_ported("tile")
     dev = resolve_device(device)
 
-    swap_ab = kind == "ab" and l_b < l_a
-    if kind == "self":
+    swap_ab = kind == "ab" and backend == "kernel" and l_b < l_a
+    if backend == "kernel" and kind == "self":
         col_tile = _kernel_self_col_tile(l_a, excl, it, dt, col_tile)
 
     return SweepPlan(kind=kind, l_a=int(l_a),
@@ -219,8 +238,8 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
 
 def stats_dtypes_for(plan: SweepPlan) -> dict:
     """The `(out_dtype, seed_dtype)` kwargs host stream prep needs under a
-    plan: the kernel streams the stats arrays themselves, so they are
-    emitted directly in the plan's stream dtype."""
+    plan: both ported sweeps stream the stats arrays themselves, so they
+    are emitted directly in the plan's stream dtype."""
     prec = plan.precision
     return dict(out_dtype=prec.stream_dtype, seed_dtype=prec.seed_dtype)
 
@@ -242,15 +261,6 @@ def cross_stats_for(plan: SweepPlan, ts_a, ts_b) -> CrossStats:
 
 
 # -- executor -----------------------------------------------------------------
-
-
-def _kernel_dist(corr: torch.Tensor, m: int) -> torch.Tensor:
-    from repro_torch.kernels import ops
-
-    return torch.where(corr <= ops.NEG + 1e-6,
-                       torch.full((), torch.inf, dtype=corr.dtype,
-                                  device=corr.device),
-                       corr_to_dist(torch.clamp(corr, -1.0, 1.0), m))
 
 
 def _check_stats(plan: SweepPlan, stats) -> None:
@@ -296,35 +306,65 @@ def _attach(res: SweepResult, groups: tuple[str, ...], fin, eager: bool):
 
 
 def _execute_self(plan: SweepPlan, stats: ZStats) -> SweepResult:
+    m = plan.window
+    eager_split = plan.harvest.sides == "both"
+    if plan.backend == "engine":
+        from repro_torch.core.matrix_profile import profile_from_stats
+
+        split = profile_from_stats(stats, plan.exclusion, plan.band,
+                                   plan.reseed_every,
+                                   accum_dtype=plan.precision.accum)
+        res = SweepResult(split.merged.to_distance(m), split.merged.index)
+
+        def fin_split():
+            return dict(left_p=split.left.to_distance(m),
+                        left_i=split.left.index,
+                        right_p=split.right.to_distance(m),
+                        right_i=split.right.index)
+
+        return _attach(res, ("split",), fin_split, eager_split)
     from repro_torch.kernels import ops
 
-    m = plan.window
     # the kernel's two halves ARE the split: row half = right profile
     # (j > i), column half = left profile (j < i)
     corr_r, idx_r, corr_c, idx_c = ops.rowmax_from_stats(
         stats, excl=plan.exclusion, it=plan.it, dt=plan.dt)
     corr, idx = ops._merge_corr(corr_r, idx_r, corr_c, idx_c)
-    res = SweepResult(_kernel_dist(corr, m), idx)
+    res = SweepResult(profile_distance(corr, m), idx)
 
     def fin_split():
-        return dict(left_p=_kernel_dist(corr_c, m), left_i=idx_c,
-                    right_p=_kernel_dist(corr_r, m), right_i=idx_r)
+        return dict(left_p=profile_distance(corr_c, m), left_i=idx_c,
+                    right_p=profile_distance(corr_r, m), right_i=idx_r)
 
-    return _attach(res, ("split",), fin_split, plan.harvest.sides == "both")
+    return _attach(res, ("split",), fin_split, eager_split)
 
 
 def _execute_ab(plan: SweepPlan, stats: CrossStats) -> SweepResult:
+    m = plan.window
+    two_sided = plan.harvest.sides == "both"
+    if plan.backend == "engine":
+        from repro_torch.core.matrix_profile import ab_join_from_stats
+
+        # the row clamp makes orientation moot (never swapped); a minimal
+        # plan really skips B's column state, so B has no raw finish: lazy
+        # access re-executes the same plan with sides="both"
+        sa, sb = ab_join_from_stats(stats, plan.exclusion, plan.band,
+                                    plan.reseed_every, two_sided,
+                                    plan.clamp_rows, plan.col_tile,
+                                    accum_dtype=plan.precision.accum)
+        return SweepResult(sa.to_distance(m), sa.index,
+                           sb.to_distance(m) if two_sided else None,
+                           sb.index if two_sided else None)
     from repro_torch.kernels import ops
 
-    m = plan.window
     corr, idx, corr_b, idx_b = ops.ab_rowmax_from_stats(
         stats, exclusion=plan.exclusion, it=plan.it, dt=plan.dt)
     if plan.swap_ab:
         corr, idx, corr_b, idx_b = corr_b, idx_b, corr, idx
-    res = SweepResult(_kernel_dist(corr, m), idx)
+    res = SweepResult(profile_distance(corr, m), idx)
 
     def fin_b():
         # the kernel launch always harvests both halves
-        return dict(b_p=_kernel_dist(corr_b, m), b_i=idx_b)
+        return dict(b_p=profile_distance(corr_b, m), b_i=idx_b)
 
-    return _attach(res, ("b",), fin_b, plan.harvest.sides == "both")
+    return _attach(res, ("b",), fin_b, two_sided)

@@ -31,6 +31,15 @@ LAUNCHES = 0  # CUDA kernel launches in this process (bumped per launch)
 _STREAM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+def row_harvest(tile: torch.Tensor):
+    """Max of a (D, n) tile over the band axis and the LARGEST band offset
+    d attaining it."""
+    best = tile.max(dim=0).values
+    dd = torch.arange(tile.shape[0], device=tile.device)[:, None]
+    d_win = torch.where(tile == best[None, :], dd, -1).max(dim=0).values
+    return best, d_win
+
+
 def _packed_init() -> int:
     """The (NEG, -1) key of the packed accumulators, as a signed int64:
     order-preserving bits of NEG high, 0xffffffff low."""
@@ -205,7 +214,7 @@ def rowmax_profile_ab_plain(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
         val = torch.where(valid, val, torch.full((), NEG, dtype=f32,
                                                  device=dev))
         # row side
-        best, d_win = _max_last_arg(val)
+        best, d_win = row_harvest(val)
         take = best > corr[lo:hi]
         j_best = (ii[0] + k0 + d_win).to(torch.int32)
         corr[lo:hi] = torch.where(take, best, corr[lo:hi])
@@ -214,7 +223,7 @@ def rowmax_profile_ab_plain(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
         W = R + c
         skew = torch.nn.functional.pad(val, (0, c + 1), value=NEG)
         skew = skew.reshape(-1)[:-c].reshape(c, W)
-        wbest, wd = _max_last_arg(skew)
+        wbest, wd = row_harvest(skew)
         i_best = (lo + torch.arange(W, device=dev) - wd).to(torch.int32)
         seg_c, seg_i = col_corr[base:base + W], col_idx[base:base + W]
         take = wbest > seg_c
@@ -223,14 +232,6 @@ def rowmax_profile_ab_plain(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
     # an all-NEG window never beats the NEG/-1 fill, so untouched entries
     # keep index -1
     return corr, idx, col_corr, col_idx
-
-
-def _max_last_arg(tile: torch.Tensor):
-    """Max over axis 0 and the LARGEST row index attaining it."""
-    best = tile.max(dim=0).values
-    dd = torch.arange(tile.shape[0], device=tile.device)[:, None]
-    arg = torch.where(tile == best[None, :], dd, -1).max(dim=0).values
-    return best, arg
 
 
 def rowmax_profile(df, dg, invn, cov0, *, excl: int, l: int,

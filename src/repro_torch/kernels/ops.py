@@ -29,6 +29,14 @@ def _pad(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
     return torch.cat(parts) if len(parts) > 1 else x.contiguous()
 
 
+def _kernel_stream(x: torch.Tensor) -> torch.Tensor:
+    """The kernel reads f32/bf16/f16 streams: f64 streams (a plan with
+    stream="float64" and f32 accumulation) are rounded to f32 once, here,
+    as the reference's kernel rounds them on load. The plain version gets
+    the same f32 streams."""
+    return x.float() if x.dtype == torch.float64 else x
+
+
 def _pad_streams(stats: ZStats, it: int, dt: int, excl: int):
     """Pad streams; returns (df, dg, invn, cov0p, n_rows, n_diags, l)."""
     l = stats.n_subsequences
@@ -38,8 +46,9 @@ def _pad_streams(stats: ZStats, it: int, dt: int, excl: int):
     pad = n_rows * it + excl + n_diags * dt - l
     # seeds feed the f32 covariance carry directly, whatever the streams' dtype
     cov0p = _pad(stats.cov0.float()[excl:], 0, n_diags * dt - n_diag_total)
-    return (_pad(stats.df, 0, pad), _pad(stats.dg, 0, pad),
-            _pad(stats.invn, 0, pad), cov0p, n_rows, n_diags, l)
+    df, dg, invn = (_pad(_kernel_stream(x), 0, pad)
+                    for x in (stats.df, stats.dg, stats.invn))
+    return df, dg, invn, cov0p, n_rows, n_diags, l
 
 
 # Column accumulators below this flat length fit one TPU VMEM block; kept so
@@ -82,8 +91,8 @@ def _merge_corr(corr_a, idx_a, corr_b, idx_b):
 def natsa_matrix_profile(ts, window: int, *, exclusion: int | None = None,
                          device=None, k: int = 1, harvest: str = "merged",
                          precision=None):
-    """Full matrix profile through the kernel backend -> `ProfileResult`;
-    the port's only backend, so this is `core.matrix_profile` itself."""
+    """Full matrix profile -> `ProfileResult`: `core.matrix_profile`
+    itself, whose planner picks the kernel backend by default."""
     from repro_torch.core.matrix_profile import matrix_profile
 
     return matrix_profile(ts, window, exclusion, k=k, harvest=harvest,
@@ -110,10 +119,11 @@ def _pad_streams_ab(cross: CrossStats, it: int, dt: int, s0: int, s1: int):
     u = np.clip(np.arange(s0, s0 + n_diags * dt) + la - 1, 0, la + lb - 2)
     cov0p = cross.cov0s.float()[torch.from_numpy(u).to(cross.cov0s.device)]
     a, b = cross.a, cross.b
-    return (_pad(a.df, 0, rows_len - la), _pad(a.dg, 0, rows_len - la),
-            _pad(a.invn, 0, rows_len - la),
-            _pad(b.df, jpad, back), _pad(b.dg, jpad, back),
-            _pad(b.invn, jpad, back), cov0p, n_rows, n_diags, jpad)
+    return (*(_pad(_kernel_stream(x), 0, rows_len - la)
+              for x in (a.df, a.dg, a.invn)),
+            *(_pad(_kernel_stream(x), jpad, back)
+              for x in (b.df, b.dg, b.invn)),
+            cov0p, n_rows, n_diags, jpad)
 
 
 def ab_spans(la: int, lb: int, exclusion: int) -> list[tuple[int, int]]:
@@ -156,8 +166,8 @@ def ab_rowmax_from_stats(cross: CrossStats, *, exclusion: int = 0,
 def natsa_ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
                   device=None, return_b: bool = False, k: int = 1,
                   precision=None):
-    """AB join through the kernel backend -> `ProfileResult`; the port's
-    only backend, so this is `core.matrix_profile.ab_join` itself."""
+    """AB join -> `ProfileResult`: `core.matrix_profile.ab_join` itself,
+    whose planner picks the kernel backend by default."""
     from repro_torch.core.matrix_profile import ab_join
 
     return ab_join(ts_a, ts_b, window, exclusion=exclusion,

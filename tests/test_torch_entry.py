@@ -174,15 +174,17 @@ def test_recompute_path_matches_eager():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(backend="engine"), "band engine"),
+    # 16-bit self-join streams on the engine take the tile sweep (§A2)
+    (dict(backend="engine", precision="bf16"), "band engine"),
     (dict(backend="rowstream"), "rowstream"),
     (dict(backend="distributed"), "distributed"),
     (dict(k=2), "top-k"),
     (dict(normalize=False), "normalize=False"),
     (dict(batch=4), "batched"),
-    (dict(band=128), "band engine's band"),
-    (dict(clamp_rows=False), "clamp_rows"),
-    (dict(reseed_every=64), "reseed_every"),
+    # the kernel never reseeds: the engine's options refuse the kernel
+    (dict(band=128, backend="kernel"), "band engine's band"),
+    (dict(clamp_rows=False, backend="kernel"), "clamp_rows"),
+    (dict(reseed_every=64, backend="kernel"), "reseed_every"),
 ])
 def test_not_ported_raises(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -199,12 +201,14 @@ def test_entry_points_raise_for_unported_options():
         ab_join(ts, ts[:200], 16, k=2, device="cpu")
     with pytest.raises(NotImplementedError):
         tops.natsa_matrix_profile(ts, 16, k=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="tile sweep"):
+        matrix_profile(ts, 16, band=64, precision="bf16", device="cpu")
     # the kernel never reseeds: a reseed period or band it would ignore
-    # raises instead
-    with pytest.raises(NotImplementedError, match="reseed_every"):
-        matrix_profile(ts, 16, reseed_every=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="band"):
-        ab_join(ts, ts[:200], 16, band=64, device="cpu")
+    # plans the band engine instead
+    assert matrix_profile(ts, 16, reseed_every=64,
+                          device="cpu").backend == "engine"
+    assert ab_join(ts, ts[:200], 16, band=64,
+                   device="cpu").backend == "engine"
     torch.testing.assert_close(
         matrix_profile(ts, 16, reseed_every=None, device="cpu").p,
         matrix_profile(ts, 16, device="cpu").p, rtol=0, atol=0)
@@ -212,13 +216,68 @@ def test_entry_points_raise_for_unported_options():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(backend="nope"), ValueError),
-    (dict(precision="f64"), ValueError),
+    # the kernel accumulates in f32 (an f64 plan goes to the engine)
+    (dict(precision="f64", backend="kernel"), ValueError),
     (dict(precision="nope"), ValueError),
     (dict(harvest="all"), ValueError),
 ])
 def test_plan_guard_rails(kw, exc):
     with pytest.raises(exc):
         tplan.plan_sweep(16, 300, device="cpu", **kw)
+
+
+def test_f64_precision_plans_the_engine():
+    plan = tplan.plan_sweep(16, 300, device="cpu", precision="f64")
+    assert plan.backend == "engine"
+    assert plan.precision.accum == "float64"
+
+
+@pytest.mark.filterwarnings("ignore:Explicitly requested dtype float64")
+@pytest.mark.parametrize("kind", ["self", "ab"])
+def test_f64_stream_kernel_plan_matches_reference(kind):
+    """stream="float64" with f32 accumulation plans the kernel, as the
+    reference does; the f64 streams are rounded to f32 once before the
+    launch, as the reference's kernel rounds them on load."""
+    import jax
+
+    from repro.core import zstats as rz
+    from repro.core.precision import PrecisionSpec as RefSpec
+    from repro_torch.core.precision import PrecisionSpec
+    from repro_torch.core.zstats import compute_stats_host
+
+    spec = dict(stream="float64", accum="float32")
+    ts, m = _walk(420, seed=31), 16
+    # The reference's interpret-mode kernel does not trace with x64 on (an
+    # int32/int64 `lax.rem` at repro/kernels/natsa_mp.py:148), so it runs
+    # with x64 off: jnp.asarray then rounds its f64 streams to f32 once,
+    # the rounding its kernel's load applies under x64. The f64 streams
+    # themselves are checked under x64 below.
+    if kind == "self":
+        port = matrix_profile(ts, m, precision=PrecisionSpec(**spec),
+                              harvest="both", device="cpu")
+        ref = rops.natsa_matrix_profile(ts, m, it=128, dt=8, harvest="both",
+                                        precision=RefSpec(**spec))
+        _assert_profile(ref.p, ref.i, port.p, port.i, m)
+        _assert_profile(ref.left_p, ref.left_i, port.left_p, port.left_i, m)
+    else:
+        b = _walk(300, seed=32)
+        port = ab_join(ts, b, m, precision=PrecisionSpec(**spec),
+                       return_b=True, device="cpu")
+        ref = rops.natsa_ab_join(ts, b, m, it=128, dt=8, return_b=True,
+                                 precision=RefSpec(**spec))
+        _assert_profile(ref.p, ref.i, port.p, port.i, m)
+        _assert_profile(ref.b_p, ref.b_i, port.b_p, port.b_i, m)
+    assert port.backend == "kernel"
+    # the streams stay f64 in the stats and reach the kernel rounded once
+    stats = compute_stats_host(ts, m, out_dtype=torch.float64, device="cpu")
+    with jax.enable_x64(True):
+        ref_df = np.asarray(rz.compute_stats_host(ts, m,
+                                                  out_dtype=np.float64).df)
+    assert stats.df.dtype == torch.float64
+    df = tops._pad_streams(stats, 128, 8, 4)[0]
+    assert df.dtype == torch.float32
+    np.testing.assert_array_equal(df[:ref_df.shape[0]].numpy(),
+                                  ref_df.astype(np.float32))
 
 
 def test_kernel_ops_entries_match_entry_points():

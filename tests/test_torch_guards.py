@@ -1,7 +1,9 @@
 """Guards of the port: it imports no jax and nothing of `repro`, it never
 falls back to the CPU quietly, and a CUDA tensor reaches the kernel or an
-error — never the plain version. The `gpu`-marked test holds the CUDA
-kernel against its plain version on the card and skips elsewhere.
+error — never the plain version. The `gpu`-marked tests hold each CUDA
+kernel against its plain version, and the band engine against the kernel
+path, on the card and skip elsewhere; this file imports no jax, so they run
+where jax is not installed.
 """
 
 import ast
@@ -13,7 +15,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import matrix_profile
-from repro_torch.kernels import _build, natsa_mp, ops
+from repro_torch.kernels import _build, flash_attn, natsa_mp, ops
 from repro_torch.utils.device import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -40,8 +42,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"natsa_mp.py", "ops.py", "plan.py", "zstats.py",
-            "chip_smoke.py"} <= names
+    assert {"natsa_mp.py", "flash_attn.py", "ref.py", "ops.py", "plan.py",
+            "zstats.py", "matrix_profile.py", "chip_smoke.py"} <= names
     assert repro_torch.resolve_device is resolve_device
 
 
@@ -136,3 +138,90 @@ def test_cuda_kernel_matches_plain_version_on_card():
             assert not bool(((ik != ip) & (err >= 1e-4)).any())
         n += 1
     assert natsa_mp.LAUNCHES - before == n
+
+
+FLASH_SHAPES = [                    # the reference's table
+    (2, 2, 128, 32, 64, 64, True),
+    (1, 4, 256, 16, 128, 64, True),
+    (2, 1, 128, 64, 32, 128, True),
+    (1, 2, 128, 32, 64, 64, False),
+    (1, 1, 64, 8, 64, 64, True),
+]
+FLASH_ODD_TILES = [                 # S % 128 != 0: the kernel's masked tile
+    (1, 2, 96, 40, 32, 48, True),
+    (1, 1, 96, 24, 16, 96, False),
+    (2, 1, 80, 128, 16, 40, True),
+]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc) to run the CUDA kernels")
+
+
+def _qkv_on_card(shape, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to("cuda", dtype) for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,bq,bk,causal",
+                         FLASH_SHAPES + FLASH_ODD_TILES)
+def test_flash_kernel_matches_plain_version_on_card(b, h, s, d, bq, bk,
+                                                    causal):
+    _need_card()
+    q, k, v = _qkv_on_card((b, h, s, d), seed=b * 100 + s)
+    before = flash_attn.LAUNCHES
+    out = flash_attn.flash_attention(q, k, v, bq=bq, bk=bk, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attn.LAUNCHES == before + 1
+    plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out, plain, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_and_block_invariance_on_card():
+    _need_card()
+    q, k, v = _qkv_on_card((1, 2, 128, 32), seed=0, dtype=torch.bfloat16)
+    out = flash_attn.flash_attention(q, k, v, bq=64, bk=64)
+    assert out.dtype == torch.bfloat16
+    plain = flash_attn.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=3e-2,
+                               atol=3e-2)
+    q, k, v = _qkv_on_card((1, 2, 128, 16), seed=7)
+    a = flash_attn.flash_attention(q, k, v, bq=32, bk=32)
+    b = flash_attn.flash_attention(q, k, v, bq=128, bk=64)
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["self", "ab"])
+def test_engine_matches_kernel_path_on_card(kind):
+    """The band engine (reseeded) against the kernel path on the same
+    series: correlations within 1e-4, indices equal except at near-ties."""
+    from repro_torch.core import ab_join
+
+    _need_card()
+    rng = np.random.default_rng(3)
+    m = 64
+    a = np.cumsum(rng.normal(size=6000))
+    if kind == "self":
+        eng = matrix_profile(a, m, band=128, harvest="both")
+        ker = matrix_profile(a, m, harvest="both")
+        sides = [("p", "i"), ("left_p", "left_i"), ("right_p", "right_i")]
+    else:
+        b = np.cumsum(rng.normal(size=2500))
+        eng = ab_join(a, b, m, band=128, return_b=True)
+        ker = ab_join(a, b, m, return_b=True)
+        sides = [("p", "i"), ("b_p", "b_i")]
+    assert (eng.backend, ker.backend) == ("engine", "kernel")
+    for fp, fi in sides:
+        ce, ck = (1.0 - getattr(r, fp).double() ** 2 / (2 * m)
+                  for r in (eng, ker))
+        fin = torch.isfinite(ce)
+        assert torch.equal(fin, torch.isfinite(ck))
+        err = (ce[fin] - ck[fin]).abs()
+        assert float(err.max()) <= 1e-4
+        mism = (getattr(eng, fi) != getattr(ker, fi))[fin]
+        assert not bool((mism & (err >= 1e-4)).any())
