@@ -6,8 +6,9 @@
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit (no card -> exit 1);
   2. build: both CUDA sources (the NATSA kernel and the flash-attention
-     kernel), one nvcc each, started together, for sm_90a, with ptxas'
-     register / spill lines;
+     kernels), one nvcc each, started together, for sm_90a, with ptxas'
+     register / spill lines, and the registers, spills and shared memory
+     of each instance of the tensor-core flash kernel;
   3. the NATSA kernel against its plain PyTorch version on the same CUDA
      tensors, on small cases (self-join, AB with and without an exclusion
      split, NaN gaps, bf16 streams): within 1e-4 in correlation, indices
@@ -17,13 +18,16 @@ Phases, each printing one JSON line:
      motif pair, checked against an f64 exact profile of 64 sampled rows;
   5. the main path at full size, AB join: `ab_join(a, b, 128,
      return_b=True)` with |a| = 131072 (epilepsy-128k), |b| = 32768;
-  6. the flash-attention kernel against its plain version on the card: the
-     reference's shape table and shapes off the kernel's 128-row tile in
-     f32 (2e-4), bf16 with a bf16 output (3e-2), and block-size
-     invariance (1e-5);
+  6. the flash-attention kernels against their plain version on the card:
+     the reference's shape table and shapes off the kernels' 128-row tile
+     in f32 (2e-4, the CUDA-core "fma" route), the same shapes plus a
+     non-causal one at D=128 and D=64 at S=4096 in bf16 (the tensor-core
+     "wgmma" route; 3e-2 and each element within one bf16 rounding), and
+     block-size invariance (1e-5); each launch is counted on its route;
   7. the flash path at full width: `flash_attention` at llama3-8b's
      prefill_32k shape (B=1, H=32, S=32768, D=128, bf16, causal; K/V made
-     with 8 heads and repeated to 32), each output element within
+     with 8 heads and repeated to 32), through the wgmma route (checked by
+     its route count), each output element within
      2^-7 |plain| + 1e-5 of the plain version's (and the whole within
      1e-2 x max|plain|), timed beside its bound and beside PyTorch's
      `scaled_dot_product_attention` (a yardstick only); a planted fault
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,10 +81,8 @@ FLASH_B, FLASH_H, FLASH_KV_H, FLASH_S, FLASH_D = 1, 32, 8, 32768, 128
 TOL_FLASH_F32 = 2e-4  # the reference's own (tests/test_flash_and_streaming.py)
 TOL_FLASH_BF16 = 3e-2
 TOL_FLASH_BLOCKS = 1e-5
-# full size, per element: |o - plain| <= 2^-7 |plain| + 1e-5. Both sides
-# round the same f32 value (up to summation order) to bf16, which can differ
-# by one bf16 ulp, at most 2^-7 of the value; 1e-5 covers values near 0.
-TOL_FLASH_REL, TOL_FLASH_ABS = 2.0 ** -7, 1e-5
+# full size, per element: within one bf16 rounding of the plain version,
+# |o - plain| <= 2^-7 |plain| + 1e-5 (flash_attn.element_ratio <= 1)
 TOL_FLASH_FULL = 1e-2  # x max|plain|, over the whole output
 FAULT_ROW0 = 4096      # the planted fault's first row
 FAULT_LATE_ROW0 = 16384  # its late rows, read on their own
@@ -192,13 +195,47 @@ def reset_counts() -> None:
     from repro_torch.kernels import flash_attn, natsa_mp
 
     natsa_mp.LAUNCHES = 0
-    flash_attn.LAUNCHES = 0
+    for route in flash_attn.LAUNCHES_BY_ROUTE:
+        flash_attn.LAUNCHES_BY_ROUTE[route] = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import flash_attn, natsa_mp
 
-    return {"natsa_mp": natsa_mp.LAUNCHES, "flash_attn": flash_attn.LAUNCHES}
+    return {"natsa_mp": natsa_mp.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
+            "flash_attn_routes": dict(flash_attn.LAUNCHES_BY_ROUTE)}
+
+
+def _wgmma_instances(log: str) -> list[dict]:
+    """ptxas' registers and spills for each instance of the tensor-core
+    flash kernel (`flash_tc_kernel<DP>`), from the build log, with the
+    dynamic shared memory its launch asks for."""
+    from repro_torch.kernels import flash_attn
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            dp = re.search(r"flash_tc_kernelILi(\d+)E", m.group(1))
+            cur = {"head_dim_padded": int(dp.group(1))} if dp else None
+            if cur:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    lib = flash_attn._lib()
+    for inst in out:
+        inst["dynamic_smem_bytes"] = lib.flash_attn_wgmma_smem_bytes(
+            inst["head_dim_padded"])
+    return out
 
 
 def phase_build() -> None:
@@ -215,9 +252,16 @@ def phase_build() -> None:
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if any(k in ln for k in ("registers", "spill",
                                           "Compiling entry"))]
-        emit({"phase": "build", "source": source,
-              "seconds": info["seconds"], "all_builds_wall_s": wall,
-              "cached": info["cached"], "ptxas": ptxas})
+        line = {"phase": "build", "source": source,
+                "seconds": info["seconds"], "all_builds_wall_s": wall,
+                "cached": info["cached"], "ptxas": ptxas}
+        if name == "flash_attn":
+            line["wgmma_instances"] = _wgmma_instances(info["log"])
+            check(len(line["wgmma_instances"]) == 2
+                  and all("registers" in i
+                          for i in line["wgmma_instances"]),
+                  f"ptxas lines of the wgmma instances: {line}")
+        emit(line)
 
 
 def _self_case(ts, m, dtype=None):
@@ -484,9 +528,27 @@ def _flash_inputs(rng, shape, dtype, kv_heads=None):
     return q, k, v
 
 
-def phase_flash_cases() -> float:
-    """The flash kernel against its plain version on the card: the
-    reference's table (tests/test_flash_and_streaming.py:12-50)."""
+def _on_route(route: str, fn):
+    """fn()'s output, checking that it launched one flash kernel, on
+    `route`."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    before = dict(flash_attn.LAUNCHES_BY_ROUTE)
+    out = fn()
+    torch.cuda.synchronize()
+    grew = {r: flash_attn.LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+    check(grew == {r: int(r == route) for r in before},
+          f"flash launches by route {grew}, expected one on {route}")
+    return out
+
+
+def phase_flash_cases() -> tuple[float, float, float]:
+    """The flash kernels against their plain version on the card: the
+    reference's table (tests/test_flash_and_streaming.py:12-50), in f32
+    on the fma route and in bf16 on the wgmma route. Returns the worst f32
+    error, the worst bf16 error and the worst bf16 element ratio."""
     import torch
 
     from repro_torch.kernels import flash_attn
@@ -496,31 +558,45 @@ def phase_flash_cases() -> float:
     table = [(2, 2, 128, 32, 64, 64, True), (1, 4, 256, 16, 128, 64, True),
              (2, 1, 128, 64, 32, 128, True), (1, 2, 128, 32, 64, 64, False),
              (1, 1, 64, 8, 64, 64, True),
-             # S % 128 != 0: the kernel's masked partial tile
+             # S % 128 != 0: the kernels' masked partial tile
              (1, 2, 96, 40, 32, 48, True), (1, 1, 96, 24, 16, 96, False),
              (2, 1, 80, 128, 16, 40, True)]
     for b, h, s, d, bq, bk, causal in table:
         q, k, v = _flash_inputs(rng, (b, h, s, d), torch.float32)
-        out = flash_attn.flash_attention(q, k, v, bq=bq, bk=bk, causal=causal)
-        torch.cuda.synchronize()
+        out = _on_route("fma", lambda: flash_attn.flash_attention(
+            q, k, v, bq=bq, bk=bk, causal=causal))
         plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
         err = float((out - plain).abs().max())
         emit({"phase": "flash_vs_plain", "case": [b, h, s, d, bq, bk, causal],
               "dtype": "float32", "max_abs_err": err, "tol": TOL_FLASH_F32})
         check(err <= TOL_FLASH_F32, f"flash f32 case {b, h, s, d}: {err}")
         worst = max(worst, err)
-    q, k, v = _flash_inputs(rng, (1, 2, 128, 32), torch.bfloat16)
-    out = flash_attn.flash_attention(q, k, v, bq=64, bk=64)
-    plain = flash_attn.flash_attention_plain(q, k, v)
-    err = float((out.float() - plain.float()).abs().max())
-    emit({"phase": "flash_vs_plain", "case": [1, 2, 128, 32, 64, 64, True],
-          "dtype": "bfloat16", "out_dtype": str(out.dtype),
-          "max_abs_err": err, "tol": TOL_FLASH_BF16})
-    check(out.dtype == torch.bfloat16 and err <= TOL_FLASH_BF16,
-          f"flash bf16 case: {out.dtype}, {err}")
+    worst_bf16 = worst_ratio = 0.0
+    bf16_cases = [(1, 2, 128, 32, 64, 64, True)] + table + [
+        (1, 4, 1024, 128, 128, 128, False),  # non-causal at full head width
+        (1, 4, 4096, 64, 128, 128, True)]    # D = 64 at S = 4096
+    for b, h, s, d, bq, bk, causal in bf16_cases:
+        q, k, v = _flash_inputs(rng, (b, h, s, d), torch.bfloat16)
+        out = _on_route("wgmma", lambda: flash_attn.flash_attention(
+            q, k, v, bq=bq, bk=bk, causal=causal))
+        plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+        err = float((out.float() - plain.float()).abs().max())
+        ratio = flash_attn.element_ratio(out, plain)
+        emit({"phase": "flash_vs_plain", "case": [b, h, s, d, bq, bk, causal],
+              "dtype": "bfloat16", "route": "wgmma",
+              "out_dtype": str(out.dtype), "max_abs_err": err,
+              "tol": TOL_FLASH_BF16, "element_ratio": ratio})
+        check(out.dtype == torch.bfloat16 and err <= TOL_FLASH_BF16
+              and ratio <= 1.0,
+              f"flash bf16 case {b, h, s, d, causal}: {out.dtype}, {err}, "
+              f"element ratio {ratio}")
+        worst_bf16, worst_ratio = max(worst_bf16, err), max(worst_ratio,
+                                                            ratio)
     q, k, v = _flash_inputs(rng, (1, 2, 128, 16), torch.float32)
-    a = flash_attn.flash_attention(q, k, v, bq=32, bk=32)
-    b = flash_attn.flash_attention(q, k, v, bq=128, bk=64)
+    a = _on_route("fma", lambda: flash_attn.flash_attention(q, k, v, bq=32,
+                                                            bk=32))
+    b = _on_route("fma", lambda: flash_attn.flash_attention(q, k, v, bq=128,
+                                                            bk=64))
     plain = flash_attn.flash_attention_plain(q, k, v)
     inv = float((a - b).abs().max())
     err = max(float((a - plain).abs().max()), float((b - plain).abs().max()))
@@ -529,14 +605,7 @@ def phase_flash_cases() -> float:
           "max_abs_err": err, "tol": TOL_FLASH_BLOCKS})
     check(inv <= TOL_FLASH_BLOCKS and err <= TOL_FLASH_F32,
           f"flash block invariance {inv}, vs plain {err}")
-    return max(worst, err)
-
-
-def _flash_err_ratio(out, plain) -> float:
-    """max over elements of |out - plain| / (2^-7 |plain| + 1e-5): at most
-    1 when every element is within one bf16 rounding of the plain one."""
-    return float(((out.float() - plain).abs()
-                  / (TOL_FLASH_REL * plain.abs() + TOL_FLASH_ABS)).max())
+    return max(worst, err), worst_bf16, worst_ratio
 
 
 def _planted_fault(q, k, v, plain_tail, tile: int = 64) -> dict:
@@ -546,7 +615,8 @@ def _planted_fault(q, k, v, plain_tail, tile: int = 64) -> dict:
     rows `plain_tail` under both checks."""
     import torch
 
-    from repro_torch.kernels.flash_attn import NEG_INF
+    from repro_torch.kernels.flash_attn import (ELEMENT_ABS, ELEMENT_REL,
+                                                NEG_INF, element_ratio)
 
     s, d = q.shape[2], q.shape[3]
     qh, kh, vh = (x[0, 0].float() for x in (q, k, v))
@@ -563,8 +633,8 @@ def _planted_fault(q, k, v, plain_tail, tile: int = 64) -> dict:
 
     def reading(rows):
         f, p = faulty[rows].float(), plain_tail[rows]
-        bad = (f - p).abs() > TOL_FLASH_REL * p.abs() + TOL_FLASH_ABS
-        return {"element_ratio": _flash_err_ratio(f, p),
+        bad = (f - p).abs() > ELEMENT_REL * p.abs() + ELEMENT_ABS
+        return {"element_ratio": element_ratio(f, p),
                 "elements_over": int(bad.sum()), "elements": bad.numel(),
                 "max_abs_err": float((f - p).abs().max())}
 
@@ -593,6 +663,9 @@ def phase_flash() -> dict:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check(counts["flash_attn"] > 0, "flash path launched no kernel")
+    check(counts["flash_attn_routes"] == {"wgmma": counts["flash_attn"],
+                                          "fma": 0},
+          f"flash path did not run the wgmma route: {counts}")
     check(out.shape == (b, h, s, d) and out.dtype == torch.bfloat16
           and out.device.type == DEVICE, "flash output shape/dtype")
     check(bool(torch.isfinite(out).all()), "flash output has non-finite")
@@ -604,7 +677,7 @@ def phase_flash() -> dict:
     plain = plain_box[0].float()
     err = float((out.float() - plain).abs().max())
     scale = float(plain.abs().max())
-    ratio = _flash_err_ratio(out, plain)
+    ratio = flash_attn.element_ratio(out, plain)
     check(ratio <= 1.0 and err <= TOL_FLASH_FULL * scale,
           f"flash full size vs plain: element ratio {ratio}, {err} vs "
           f"{TOL_FLASH_FULL} x {scale}")
@@ -621,15 +694,20 @@ def phase_flash() -> dict:
     flops = 4.0 * b * h * d * s * s / 2
     nbytes = 4.0 * b * h * s * d * q.element_size()
     t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
+    # the wgmma kernel's own tensor work: QK once, PV twice (P_hi, P_lo)
+    kernel_floor_ms = 1e3 * 1.5 * flops / BF16_PEAK
     out = {"phase": "main_flash", "shape": [b, h, s, d], "dtype": "bfloat16",
            "causal": True, "kv_heads": FLASH_KV_H, "launches":
-           counts["flash_attn"], "counts": counts, "e2e_s": e2e,
+           counts["flash_attn"], "counts": counts,
+           "launches_by_route": counts["flash_attn_routes"], "e2e_s": e2e,
            "peak_device_bytes": peak, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes,
            "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
+           "kernel_floor_ms": kernel_floor_ms,
+           "library_ratio": ms / library_ms,
            "max_abs_err": err, "max_abs_plain": scale,
            "tol": TOL_FLASH_FULL * scale, "element_ratio": ratio,
            "planted_fault": fault}
@@ -719,7 +797,7 @@ def main() -> None:
     small_err = phase_kernel_cases()
     s = phase_self()
     ab = phase_ab()
-    flash_err = phase_flash_cases()
+    flash_err, flash_bf16_err, flash_bf16_ratio = phase_flash_cases()
     fl = phase_flash()
     phase_engine()
     emit({"kernels": [{
@@ -744,6 +822,9 @@ def main() -> None:
                              "ab_join": ab["counts"]["flash_attn"],
                              "flash_attention": fl["launches"]},
         "max_abs_err": flash_err,
+        "bf16_max_abs_err": flash_bf16_err,
+        "bf16_max_element_ratio": flash_bf16_ratio,
+        "launches_by_route": fl["launches_by_route"],
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],

@@ -1,18 +1,22 @@
 """Causal (or full) attention with an online softmax — wrapper and plain
-version of the CUDA kernel `csrc/flash_attn.cu`.
+version of the CUDA kernels in `csrc/flash_attn.cu`.
 
 Port of `repro.kernels.flash_attn` (`flash_attention`, `ref_attention`), with
 the same contract: q, k, v `(B, H, S, D)` with equal heads, float32 or
 bfloat16, `S` divisible by `bq` and `bk`; the output has the input's dtype.
 Logits, softmax statistics and the accumulator are float32.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
+A CUDA tensor launches a kernel or raises; a CPU tensor runs
 `flash_attention_plain`, the plain PyTorch version of the same function,
-which the tests and the chip smoke hold the kernel against. `bq` and `bk`
+which the tests and the chip smoke hold the kernels against. `_route`
+picks the kernel by dtype and head dim: bfloat16 with `D % 8 == 0` runs the
+tensor-core kernel ("wgmma": bf16 products, P split into two bf16 terms
+for the PV product), float32 and other bfloat16 head dims the CUDA-core
+kernel ("fma": f32 products). Both take head dims up to 128. `bq` and `bk`
 keep the reference's contract (`S` divisible by both) but only set the
-TPU kernel's order of summation: the CUDA kernel tiles by its own 128
-query and 128 key rows, masking a partial last tile, for head dims up to
-128. It has no backward, as the reference has none.
+TPU kernel's order of summation: each CUDA kernel tiles its own way,
+masking a partial last tile. There is no backward, as the reference has
+none.
 """
 
 from __future__ import annotations
@@ -25,22 +29,49 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-LAUNCHES = 0  # CUDA kernel launches in this process (bumped per launch)
+# CUDA kernel launches in this process, per kernel (bumped per launch);
+# `LAUNCHES` reads their total
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype; q, k, v, o; bh, S, D; scale; causal; stream
-_ARGTYPES = [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P]
+# q, k, v, o; bh, S, D; scale; causal; stream
+_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P]
+
+
+def __getattr__(name):
+    if name == "LAUNCHES":
+        return sum(LAUNCHES_BY_ROUTE.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _lib():
-    """The built `csrc/flash_attn.cu` with its C entry's signature set."""
+    """The built `csrc/flash_attn.cu` with its C entries' signatures set:
+    `flash_attn_fwd` (fma route, after a dtype code),
+    `flash_attn_fwd_wgmma` (bf16 only) and `flash_attn_wgmma_smem_bytes`
+    (a wgmma block's shared memory for a padded head dim)."""
     lib = _build.load("flash_attn")
-    lib.flash_attn_fwd.argtypes = _ARGTYPES
-    lib.flash_attn_fwd.restype = ctypes.c_int
+    lib.flash_attn_fwd.argtypes = [_I] + _ARGTYPES
+    lib.flash_attn_fwd_wgmma.argtypes = _ARGTYPES
+    lib.flash_attn_wgmma_smem_bytes.argtypes = [_I]
+    for fn in (lib.flash_attn_fwd, lib.flash_attn_fwd_wgmma,
+               lib.flash_attn_wgmma_smem_bytes):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _route(dtype: torch.dtype, d: int) -> str:
+    """Which CUDA kernel runs a head dim `d` of `dtype`: "wgmma" (tensor
+    cores) for bfloat16 with d % 8 == 0, whose rows TMA can load, else
+    "fma" (CUDA cores; float32 keeps full f32 products, as the reference's
+    2e-4 tolerance needs). A head dim above 128 raises: neither kernel
+    takes it."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "fma"
 
 
 def _check(q, k, v, bq: int, bk: int) -> None:
@@ -77,11 +108,8 @@ def flash_attention(q, k, v, *, bq: int = 128, bk: int = 128,
 
 
 def _flash_attention_cuda(q, k, v, *, causal):
-    global LAUNCHES
     b, h, s, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    route = _route(q.dtype, d)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the flash-attention kernel runs on CUDA tensors, "
@@ -90,15 +118,36 @@ def _flash_attention_cuda(q, k, v, *, causal):
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    ptrs = [x.data_ptr() for x in (q, k, v, out)]
+    args = (*ptrs, b * h, s, d, 1.0 / d ** 0.5, int(causal))
+    if route == "wgmma" and any(p % 16 for p in ptrs):
+        raise ValueError("the wgmma kernel loads q, k, v by TMA, which needs "
+                         "16-byte aligned tensors")
     with torch.cuda.device(dev):
-        rc = lib.flash_attn_fwd(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b * h, s, d, 1.0 / d ** 0.5, int(causal),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "wgmma":
+            rc = lib.flash_attn_fwd_wgmma(*args, stream)
+        else:
+            rc = lib.flash_attn_fwd(_DTYPE_CODES[q.dtype], *args, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"flash_attn {route} kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES_BY_ROUTE[route] += 1
     return out
+
+
+# one bf16 rounding: |out - plain| <= 2^-7 |plain| + 1e-5 per element. Two
+# roundings of the same f32 value (up to summation order) to bf16 can differ
+# by one bf16 ulp, at most 2^-7 of the value; 1e-5 covers values near 0.
+ELEMENT_REL, ELEMENT_ABS = 2.0 ** -7, 1e-5
+
+
+def element_ratio(out, plain) -> float:
+    """max over elements of |out - plain| / (2^-7 |plain| + 1e-5): at most 1
+    when every element of `out` is within one bf16 rounding of `plain`'s."""
+    out, plain = out.float(), plain.float()
+    return float(((out - plain).abs()
+                  / (ELEMENT_REL * plain.abs() + ELEMENT_ABS)).max())
 
 
 # bytes of float32 logits one step of the plain version may hold

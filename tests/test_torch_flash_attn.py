@@ -5,7 +5,10 @@ mode and its oracle `ref_attention`, on the same numpy-seeded inputs.
 Tolerances are the reference's own (`tests/test_flash_and_streaming.py`):
 2e-4 in f32, 3e-2 in bf16 with the dtype kept, 1e-5 across block sizes. On
 the CPU the wrapper runs the plain version; the `gpu`-marked tests in
-`test_torch_guards.py` hold the CUDA kernel against it on the card.
+`test_torch_guards.py` hold the CUDA kernels against it on the card. The
+tensor-core kernel's arithmetic (bf16 products, P split into two bf16
+terms for the PV product) is emulated here in plain PyTorch and held to
+the same full-size element check as the kernel on the card.
 """
 
 import jax.numpy as jnp
@@ -41,6 +44,38 @@ def _qkv(shape, seed, dtype=np.float32):
 
 def _torch(xs, dtype=torch.float32, device="cpu"):
     return [torch.from_numpy(x).to(device=device, dtype=dtype) for x in xs]
+
+
+def _emulate_wgmma(q, k, v, *, split_p, causal=True, bk=128):
+    """The tensor-core kernel's arithmetic for one head, in plain PyTorch:
+    bf16 q, k, v; f32 logits, m, l and accumulator; an online softmax over
+    `bk`-key tiles; P enters the PV product as bf16, either split into
+    P_hi = bf16(P) and P_lo = bf16(P - P_hi), both products summed in f32
+    (`split_p`), or rounded once. l is summed from the f32 P. The output is
+    rounded to bf16 at the end."""
+    s, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((s, 1), flash_attn.NEG_INF)
+    l = torch.zeros(s, 1)
+    acc = torch.zeros(s, d)
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        k1 = min(s, k0 + bk)
+        logits = (qf @ kf[k0:k1].T) / d ** 0.5
+        if causal:
+            logits = logits.masked_fill(torch.arange(k0, k1)[None] > rows,
+                                        flash_attn.NEG_INF)
+        m_new = torch.maximum(m, logits.max(dim=1, keepdim=True).values)
+        p = torch.exp(logits - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[k0:k1]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vf[k0:k1]
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
 
 
 @pytest.mark.parametrize("oracle", ["kernel", "ref_attention"])
@@ -85,6 +120,81 @@ def test_plain_version_chunking_is_exact(causal):
     chunked = flash_attn.flash_attention_plain(q, k, v, causal=causal,
                                                logit_bytes=4 * 96 * 7)
     torch.testing.assert_close(chunked, whole, rtol=0, atol=1e-6)
+
+
+# -- the tensor-core kernel's arithmetic -----------------------------------------
+
+SPLIT_SEEDS = [6, 11]
+
+
+@pytest.mark.parametrize("seed", SPLIT_SEEDS)
+def test_split_p_emulation_meets_the_element_check(seed):
+    """P split into bf16 hi + lo keeps every output element within one bf16
+    rounding of the plain version (element ratio <= 1), and within the
+    reference's bf16 tolerance of its oracle, at S=2048, D=128, causal."""
+    q, k, v = _qkv((1, 1, 2048, 128), seed=seed)
+    tq, tk, tv = _torch((q, k, v), torch.bfloat16)
+    plain = flash_attn.flash_attention_plain(tq, tk, tv)
+    emu = _emulate_wgmma(tq[0, 0], tk[0, 0], tv[0, 0], split_p=True)
+    assert flash_attn.element_ratio(emu, plain[0, 0]) <= 1.0
+    ref = ref_attention(*(jnp.asarray(x).astype(jnp.bfloat16)
+                          for x in (q, k, v)))
+    ref = torch.from_numpy(np.asarray(ref[0, 0], np.float32))
+    assert flash_attn.element_ratio(emu, ref) <= 1.0
+    np.testing.assert_allclose(emu.float().numpy(),
+                               ref.numpy(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("seed", SPLIT_SEEDS)
+def test_bf16_p_emulation_fails_the_element_check(seed):
+    """The reason for the split: P rounded once to bf16 moves outputs by
+    more than one bf16 rounding of the plain version's."""
+    tq, tk, tv = _torch(_qkv((1, 1, 2048, 128), seed=seed), torch.bfloat16)
+    plain = flash_attn.flash_attention_plain(tq, tk, tv)
+    emu = _emulate_wgmma(tq[0, 0], tk[0, 0], tv[0, 0], split_p=False)
+    assert flash_attn.element_ratio(emu, plain[0, 0]) > 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_emulation_with_a_partial_tile(causal):
+    """S not a multiple of the 128-key tile: the emulation's partial last
+    tile agrees with the plain version as the whole tiles do."""
+    tq, tk, tv = _torch(_qkv((1, 1, 300, 72), seed=5), torch.bfloat16)
+    plain = flash_attn.flash_attention_plain(tq, tk, tv, causal=causal)
+    emu = _emulate_wgmma(tq[0, 0], tk[0, 0], tv[0, 0], split_p=True,
+                         causal=causal)
+    assert flash_attn.element_ratio(emu, plain[0, 0]) <= 1.0
+
+
+def test_element_ratio_is_one_bf16_rounding():
+    """A bf16 rounding of the plain values reads <= 1; an error of 2^-6 of
+    each value reads > 1."""
+    plain = torch.from_numpy(np.random.default_rng(2).standard_normal(4096)
+                             .astype(np.float32))
+    assert flash_attn.element_ratio(plain.bfloat16(), plain) <= 1.0
+    assert flash_attn.element_ratio(plain * (1 + 2.0 ** -6), plain) > 1.0
+
+
+def test_launches_is_the_sum_over_routes(monkeypatch):
+    monkeypatch.setitem(flash_attn.LAUNCHES_BY_ROUTE, "wgmma", 3)
+    monkeypatch.setitem(flash_attn.LAUNCHES_BY_ROUTE, "fma", 2)
+    assert flash_attn.LAUNCHES == 5
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 40, "wgmma"),
+    (torch.bfloat16, 12, "fma"), (torch.bfloat16, 127, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 16, "fma"),
+])
+def test_route_by_dtype_and_head_dim(dtype, d, route):
+    assert flash_attn._route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_raises_above_128(dtype):
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        flash_attn._route(dtype, 136)
 
 
 # -- guards -------------------------------------------------------------------

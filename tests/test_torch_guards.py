@@ -173,8 +173,7 @@ def test_flash_kernel_matches_plain_version_on_card(b, h, s, d, bq, bk,
     _need_card()
     q, k, v = _qkv_on_card((b, h, s, d), seed=b * 100 + s)
     before = flash_attn.LAUNCHES
-    out = flash_attn.flash_attention(q, k, v, bq=bq, bk=bk, causal=causal)
-    torch.cuda.synchronize()
+    out = _launch_counted(q, k, v, "fma", bq=bq, bk=bk, causal=causal)
     assert flash_attn.LAUNCHES == before + 1
     plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(out, plain, rtol=2e-4, atol=2e-4)
@@ -193,6 +192,61 @@ def test_flash_kernel_bf16_and_block_invariance_on_card():
     a = flash_attn.flash_attention(q, k, v, bq=32, bk=32)
     b = flash_attn.flash_attention(q, k, v, bq=128, bk=64)
     torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+FLASH_BF16_WGMMA = FLASH_SHAPES + FLASH_ODD_TILES + [
+    (1, 4, 1024, 128, 128, 128, False),   # non-causal at full head width
+    (1, 4, 4096, 64, 128, 128, True),     # D = 64 at S = 4096
+]
+
+
+def _launch_counted(q, k, v, route, **kw):
+    before = dict(flash_attn.LAUNCHES_BY_ROUTE)
+    out = flash_attn.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    grew = {r: flash_attn.LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+    assert grew == {r: int(r == route) for r in before}, grew
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,bq,bk,causal", FLASH_BF16_WGMMA)
+def test_flash_wgmma_route_matches_plain_version_on_card(b, h, s, d, bq, bk,
+                                                         causal):
+    """bf16 with D % 8 == 0 runs the tensor-core kernel: within the
+    reference's bf16 3e-2 and within one bf16 rounding per element."""
+    _need_card()
+    q, k, v = _qkv_on_card((b, h, s, d), seed=s + d, dtype=torch.bfloat16)
+    out = _launch_counted(q, k, v, "wgmma", bq=bq, bk=bk, causal=causal)
+    assert out.dtype == torch.bfloat16
+    plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=3e-2,
+                               atol=3e-2)
+    assert flash_attn.element_ratio(out, plain) <= 1.0
+
+
+@pytest.mark.gpu
+def test_flash_wgmma_route_raises_for_unaligned_tensors_on_card():
+    """TMA needs 16-byte aligned rows: a contiguous view 2 bytes into its
+    storage raises before any launch."""
+    _need_card()
+    flat = torch.zeros(128 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(1, 1, 128, 64)
+    before = dict(flash_attn.LAUNCHES_BY_ROUTE)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attn.flash_attention(q, q, q)
+    assert flash_attn.LAUNCHES_BY_ROUTE == before
+
+
+@pytest.mark.gpu
+def test_flash_fma_route_takes_bf16_head_dims_off_8_on_card():
+    _need_card()
+    q, k, v = _qkv_on_card((1, 2, 256, 12), seed=9, dtype=torch.bfloat16)
+    out = _launch_counted(q, k, v, "fma")
+    plain = flash_attn.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=3e-2,
+                               atol=3e-2)
+    assert flash_attn.element_ratio(out, plain) <= 1.0
 
 
 @pytest.mark.gpu
