@@ -7,17 +7,24 @@ Phases, each printing one JSON line:
   1. device: the card's name, count and power limit (no card -> exit 1);
   2. build: both CUDA sources (the NATSA kernel and the flash-attention
      kernels), one nvcc each, started together, for sm_90a, with ptxas'
-     register / spill lines, and the registers, spills and shared memory
-     of each instance of the tensor-core flash kernel;
+     register / spill lines; the registers, spills and static shared
+     memory of each instance of the NATSA sweep kernel with the dynamic
+     shared memory of its launch, and the same for each instance of the
+     tensor-core flash kernel (no NATSA instance may spill);
   3. the NATSA kernel against its plain PyTorch version on the same CUDA
      tensors, on small cases (self-join, AB with and without an exclusion
-     split, NaN gaps, bf16 streams): within 1e-4 in correlation, indices
-     differing only at near-ties;
+     split, NaN gaps, bf16 streams) and on the edge cases of
+     `natsa_edge_cases` (geometries cut around the kernel's tiles): within
+     1e-4 in correlation, indices differing only at near-ties;
   4. the main path at full size, self-join: `matrix_profile` on a seeded
      random walk of n=262144, m=512 (the ecg-256k workload) with a planted
      motif pair, checked against an f64 exact profile of 64 sampled rows;
+     the kernel's four launches at this size (one warm-up, three timed)
+     must give bitwise equal outputs (`bitwise_repeat`);
   5. the main path at full size, AB join: `ab_join(a, b, 128,
-     return_b=True)` with |a| = 131072 (epilepsy-128k), |b| = 32768;
+     return_b=True)` with |a| = 131072 (epilepsy-128k), |b| = 32768, with
+     the same checks, and the NATSA kernel timed at 1, 2 and 4 warps per
+     SM on full-length diagonals (`warps_per_sm_probe`);
   6. the flash-attention kernels against their plain version on the card:
      the reference's shape table and shapes off the kernels' 128-row tile
      in f32 (2e-4, the CUDA-core "fma" route), the same shapes plus a
@@ -206,18 +213,16 @@ def read_counts() -> dict:
             "flash_attn_routes": dict(flash_attn.LAUNCHES_BY_ROUTE)}
 
 
-def _wgmma_instances(log: str) -> list[dict]:
-    """ptxas' registers and spills for each instance of the tensor-core
-    flash kernel (`flash_tc_kernel<DP>`), from the build log, with the
-    dynamic shared memory its launch asks for."""
-    from repro_torch.kernels import flash_attn
-
+def _ptxas_entries(log: str, pattern: str) -> list[dict]:
+    """ptxas' registers, spills and static shared memory of each entry
+    function whose mangled name matches `pattern` (its first group names
+    the instance), from a build log."""
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            dp = re.search(r"flash_tc_kernelILi(\d+)E", m.group(1))
-            cur = {"head_dim_padded": int(dp.group(1))} if dp else None
+            inst = re.search(pattern, m.group(1))
+            cur = {"instance": inst.group(1)} if inst else None
             if cur:
                 out.append(cur)
             continue
@@ -231,10 +236,43 @@ def _wgmma_instances(log: str) -> list[dict]:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
+    return out
+
+
+def _wgmma_instances(log: str) -> list[dict]:
+    """ptxas' registers and spills for each instance of the tensor-core
+    flash kernel (`flash_tc_kernel<DP>`), from the build log, with the
+    dynamic shared memory its launch asks for."""
+    from repro_torch.kernels import flash_attn
+
+    out = _ptxas_entries(log, r"flash_tc_kernelILi(\d+)E")
     lib = flash_attn._lib()
     for inst in out:
+        inst["head_dim_padded"] = int(inst.pop("instance"))
         inst["dynamic_smem_bytes"] = lib.flash_attn_wgmma_smem_bytes(
             inst["head_dim_padded"])
+    return out
+
+
+_NATSA_STREAM_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                       "6__half": "float16"}
+
+
+def _natsa_instances(log: str) -> list[dict]:
+    """ptxas' registers, spills and static shared memory of each instance
+    of the NATSA sweep kernel (one per stream dtype), with its launch
+    shape (threads, diagonals per block, steps per stage, dynamic shared
+    memory)."""
+    from repro_torch.kernels import natsa_mp
+
+    shape = natsa_mp.launch_shape()
+    out = _ptxas_entries(log, r"natsa_sweepI(f|13__nv_bfloat16|6__half)E")
+    for inst in out:
+        inst["stream_dtype"] = _NATSA_STREAM_TYPES[inst.pop("instance")]
+        inst.update(shape)
     return out
 
 
@@ -261,36 +299,107 @@ def phase_build() -> None:
                   and all("registers" in i
                           for i in line["wgmma_instances"]),
                   f"ptxas lines of the wgmma instances: {line}")
+        if name == "natsa_mp":
+            from repro_torch.kernels import natsa_mp
+
+            insts = line["natsa_instances"] = _natsa_instances(info["log"])
+            fields = ("registers", "spill_store_bytes", "spill_load_bytes",
+                      "static_smem_bytes", "dynamic_smem_bytes")
+            check(sorted(i["stream_dtype"] for i in insts)
+                  == sorted(_NATSA_STREAM_TYPES.values())
+                  and all(f in i for i in insts for f in fields),
+                  f"ptxas lines of the NATSA instances: {line}")
+            check(all(i["spill_store_bytes"] == i["spill_load_bytes"] == 0
+                      for i in insts), f"a NATSA instance spills: {insts}")
+            check(all(i["diagonals_per_block"] ==
+                      natsa_mp.DIAGONALS_PER_BLOCK and i["steps_per_stage"]
+                      == natsa_mp.STEPS_PER_STAGE for i in insts),
+                  f"natsa_mp's tiling constants differ from the kernel's: "
+                  f"{insts}")
         emit(line)
 
 
-def _self_case(ts, m, dtype=None):
+def _self_case(ts, m, dtype=None, it=None, excl=None, device=DEVICE):
     from repro_torch.core.matrix_profile import default_exclusion
     from repro_torch.core.zstats import compute_stats_host
     from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, ops
 
-    excl = default_exclusion(m)
-    stats = compute_stats_host(ts, m, out_dtype=dtype, device=DEVICE)
+    it = DEFAULT_IT if it is None else it
+    excl = default_exclusion(m) if excl is None else excl
+    stats = compute_stats_host(ts, m, out_dtype=dtype, device=device)
     df, dg, invn, cov0p, n_rows, _, l = ops._pad_streams(
-        stats, DEFAULT_IT, DEFAULT_DT, excl)
-    rows = n_rows * DEFAULT_IT
+        stats, it, DEFAULT_DT, excl)
+    rows = n_rows * it
     return ((df[:rows], dg[:rows], invn[:rows], df, dg, invn, cov0p),
             dict(k_start=excl, k_end=l, l_i=l, l_j=l, jpad=0))
 
 
-def _ab_cases(ts_rows, ts_cols, m, exclusion):
+def _ab_cases(ts_rows, ts_cols, m, exclusion, it=None, device=DEVICE):
     """Kernel inputs of every span of an AB sweep (rows = the first side)."""
     from repro_torch.core.zstats import compute_cross_stats_host
     from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, ops
 
-    cross = compute_cross_stats_host(ts_rows, ts_cols, m, device=DEVICE)
+    it = DEFAULT_IT if it is None else it
+    cross = compute_cross_stats_host(ts_rows, ts_cols, m, device=device)
     cases = []
     for s0, s1 in ops.ab_spans(cross.l_a, cross.l_b, exclusion):
-        *args, _, _, jpad = ops._pad_streams_ab(cross, DEFAULT_IT,
-                                                DEFAULT_DT, s0, s1)
+        *args, _, _, jpad = ops._pad_streams_ab(cross, it, DEFAULT_DT, s0, s1)
         cases.append((tuple(args), dict(k_start=s0, k_end=s1, l_i=cross.l_a,
                                         l_j=cross.l_b, jpad=jpad)))
     return cases
+
+
+def natsa_edge_cases() -> list[dict]:
+    """Geometries cut around the NATSA kernel's tiles (DB diagonals per
+    block, TS rows per stage). The CPU tests hold the plain version to the
+    reference's kernel on the same list, and the card tests and phase 3
+    the CUDA kernel to the plain version. `n` / `na`, `nb` are series
+    lengths (rows on the `na` side), `it` the row padding, `excl` the
+    self-join exclusion or the AB exclusion split, `gaps` (start, length)
+    runs of NaN."""
+    from repro_torch.kernels.natsa_mp import DIAGONALS_PER_BLOCK as DB
+    from repro_torch.kernels.natsa_mp import STEPS_PER_STAGE as TS
+
+    return [
+        # l = 4 TS + 1: the last stage holds one row
+        {"name": "l_one_past_stage", "kind": "self", "n": 4 * TS + 1 + 15,
+         "m": 16, "excl": 4, "it": 64, "seed": 21},
+        # 100 diagonals, fewer than one block
+        {"name": "diagonals_under_one_block", "kind": "self",
+         "n": DB - 28 + 3 + 11, "m": 12, "excl": 3, "it": 32, "seed": 22},
+        # the negative span ends half way into its second block (jpad > 0)
+        {"name": "k_end_inside_block", "kind": "ab", "na": DB + DB // 2 + 8
+         + 15, "nb": 150, "m": 16, "excl": 8, "it": 64, "seed": 23},
+        # 40 rows, fewer than one stage
+        {"name": "rows_under_one_stage", "kind": "ab", "na": 40 + 11,
+         "nb": 300, "m": 12, "excl": 0, "it": 8, "seed": 24},
+        # the long side on rows: most diagonals negative (jpad = la - 1)
+        {"name": "ab_negative_diagonals", "kind": "ab", "na": 300, "nb": 100,
+         "m": 16, "excl": 0, "it": 64, "seed": 25},
+        # windows 45..69 missing: across the first stage boundary (row 64)
+        {"name": "nan_gap_across_stage", "kind": "self", "n": 400, "m": 16,
+         "excl": 4, "it": 64, "gaps": [(TS - 4, 10)], "seed": 26},
+    ]
+
+
+def edge_case_series(case: dict) -> tuple:
+    """The case's seeded random walks: (ts,) or (rows side, column side)."""
+    rng = np.random.default_rng(case["seed"])
+    series = tuple(walk(rng, case[k]) for k in (
+        ("n",) if case["kind"] == "self" else ("na", "nb")))
+    for start, length in case.get("gaps", ()):
+        series[0][start:start + length] = np.nan
+    return series
+
+
+def edge_case_inputs(case: dict, device=DEVICE) -> list[tuple]:
+    """Kernel (args, kwargs) of every launch of the case on `device`."""
+    series = edge_case_series(case)
+    if case["kind"] == "self":
+        return [_self_case(series[0], case["m"], it=case["it"],
+                           excl=case["excl"], device=device)]
+    return _ab_cases(*series, case["m"], case["excl"], it=case["it"],
+                     device=device)
 
 
 def phase_kernel_cases() -> float:
@@ -312,6 +421,9 @@ def phase_kernel_cases() -> float:
     cases.append(("self_nan_gaps", _self_case(gaps, m)))
     cases.append(("self_bf16", _self_case(walk(rng, 16384), m,
                                           torch.bfloat16)))
+    for case in natsa_edge_cases():
+        for n, inputs in enumerate(edge_case_inputs(case)):
+            cases.append((f"edge_{case['name']}_span{n}", inputs))
     worst = 0.0
     for name, (args, kw) in cases:
         kern = natsa_mp.rowmax_profile_ab(*args, **kw)
@@ -347,15 +459,21 @@ def _bound(args, kw, cells: float) -> dict:
 
 
 def _time_kernel(args, kw, cells: float, ts_rows, ts_cols, m) -> dict:
-    """Kernel ms (CUDA events, after a warm-up), plain ms (one run) and
-    the kernel-vs-plain comparison at the main path's shapes."""
+    """Kernel ms (CUDA events, after a warm-up), plain ms (one run), the
+    kernel-vs-plain comparison at the main path's shapes, and whether the
+    first and the last of the four launches gave bitwise equal outputs."""
     import torch
 
     from repro_torch.kernels import natsa_mp
 
     kern = natsa_mp.rowmax_profile_ab(*args, **kw)        # warm-up
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: natsa_mp.rowmax_profile_ab(*args, **kw), 3)
+    last = []
+    ms = cuda_ms(lambda: last.append(natsa_mp.rowmax_profile_ab(*args, **kw)),
+                 3)
+    repeat = all(torch.equal(a, b) for a, b in zip(kern, last[-1]))
+    check(repeat, "the kernel's outputs differ from launch to launch")
+    del last
     plain_box = []
     plain_ms = cuda_ms(lambda: plain_box.append(
         natsa_mp.rowmax_profile_ab_plain(*args, **kw)), 1)
@@ -367,8 +485,34 @@ def _time_kernel(args, kw, cells: float, ts_rows, ts_cols, m) -> dict:
     b = _bound(args, kw, cells)
     return {"ms": ms, "plain_ms": plain_ms, **b, "cells": cells,
             "cells_per_s": cells / (ms * 1e-3),
-            "share_of_bound": b["bound_ms"] / ms,
+            "share_of_bound": b["bound_ms"] / ms, "bitwise_repeat": repeat,
             "full_size_vs_plain": res}
+
+
+def _warps_probe(args, kw) -> dict:
+    """The NATSA kernel on w blocks (warps) per SM, each on full-length
+    diagonals of the AB sweep (k >= 0), timed: `ns_per_step` is one row
+    step of one warp. Flat in w means each warp waits on its own
+    dependency chain; proportional to w means the SM's pipes are full."""
+    import torch
+
+    from repro_torch.kernels import natsa_mp
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    db, ts = natsa_mp.DIAGONALS_PER_BLOCK, natsa_mp.STEPS_PER_STAGE
+    d_off = -kw["k_start"]            # the diagonal k = 0
+    steps = -(-(kw["l_i"] + db - 1) // ts) * ts
+    out = {"sms": sms, "steps_per_warp": steps, "ns_per_step": {}}
+    for w in (1, 2, 4):
+        nd = db * sms * w
+        check(nd <= kw["l_j"] - kw["l_i"] + 1,
+              f"{w} warps per SM leave the full-length diagonals")
+        sub = (*args[:6], args[6][d_off:d_off + nd].contiguous())
+        sub_kw = dict(kw, k_start=0, k_end=nd)
+        natsa_mp.rowmax_profile_ab(*sub, **sub_kw)       # warm-up
+        ms = cuda_ms(lambda: natsa_mp.rowmax_profile_ab(*sub, **sub_kw), 5)
+        out["ns_per_step"][w] = ms * 1e6 / steps
+    return out
 
 
 def _oracle_rows(prof_p, ts_rows, ts_cols, m, rows, exclusion) -> float:
@@ -500,6 +644,7 @@ def phase_ab() -> dict:
 
     (args, kw), = _ab_cases(b, a, m, 0)
     kt = _time_kernel(args, kw, float(la) * lb, b, a, m)
+    kt["warps_per_sm_probe"] = _warps_probe(args, kw)
     out = {"phase": "main_ab", "n_a": AB_NA, "n_b": AB_NB, "m": m,
            "launches": launches, "counts": counts, "motif": [pa, pb],
            "motif_corr": motif_corr,

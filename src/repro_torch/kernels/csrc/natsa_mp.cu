@@ -16,35 +16,64 @@
 // before its first cell read the zero pad, so its covariance holds the seed
 // until the diagonal enters the rectangle. Column outputs are indexed j + jpad.
 //
-// Design (a simple one, right first):
-//   * one block of DB = 128 threads per group of 128 consecutive diagonals,
-//     one thread per diagonal, its covariance carried in a register;
-//   * the TPU's sequential row grid becomes a loop over row tiles of TR = 64
-//     rows inside the block, clamped to the rows where any of the block's
-//     diagonals lies in the rectangle (rows before it only add zero deltas);
-//   * each tile stages the i-side rows and the (TR + DB)-wide j window of
-//     df/dg/invn in shared memory (upcast to f32 on load: streams may be
-//     f32, bf16 or f16; all arithmetic is f32, as on the TPU);
-//   * the tile's TR x DB correlations go to shared memory; each warp reduces
-//     rows across the block's diagonals with shuffles, each thread reduces
-//     columns over the anti-diagonals of the (TR + DB - 1)-wide window;
-//   * each row / column best is merged into global accumulators with one
-//     packed 64-bit atomicMax (order-preserving float bits high, index low),
-//     skipped when a plain L2 read already shows a better value; a second
-//     kernel unpacks the accumulators into corr / idx.
+// Design: register tiles of diagonals, reduced along the warp.
+//   * A block is one warp. Lane t owns DPT = 4 consecutive diagonals
+//     k = kb + DPT*t + q and carries their covariances in registers, row by
+//     row, with the expression and order of the TPU kernel's recurrence.
+//   * The lanes walk the rows skewed in time: at step s lane t is at row
+//     i = s - t. Row i then reaches lane t one step after lane t-1 finished
+//     its cells, and column j reaches lane t in the very step in which lane
+//     t+1 finished its cells of j. So both reductions run along the warp by
+//     shuffles and need no shared-memory round trip: the row partial (max,
+//     argmax) moves up one lane per step and leaves lane 31 complete; the
+//     column partial moves down one lane every DPT-1 steps and leaves lane
+//     0 complete. Inside a lane the DPT cells of a row merge in registers,
+//     and a ring of DPT column partials in registers completes one column
+//     per step. There is no shared-memory atomic: on sm_90a a 64-bit
+//     atomicMax on shared memory compiles to a compare-and-swap loop
+//     (ATOMS.CAST.SPIN.64 in `cuobjdump -sass`), not to one instruction.
+//   * j side: a lane's cells at step s read DPT consecutive j entries, and
+//     step s+1 reads the same window shifted by one, so each step loads ONE
+//     new (df, dg, invn) triple per lane, as one 16-byte shared load at
+//     lane stride 16*(DPT-1) bytes (no bank conflicts); DPT steps are
+//     unrolled so that the window rotates through registers by renaming.
+//     i side: lane t reads row s - t, consecutive 16-byte entries.
+//   * Masks are out of the cell path. Staging writes invn as NaN where the
+//     cell lies outside the rectangle (i >= l_i, j outside [0, l_j)) or the
+//     window is missing (invn < 0), and a diagonal at or past k_end or
+//     n_diag starts from a NaN covariance. A NaN correlation never passes a
+//     `>=`, so its cell drops out (exact under -O3 without fast math; the
+//     build sets none). Rows before the block's first row add zero deltas
+//     (zero prepad on the j side, zeroed i side), as the TPU grid's do.
+//   * The warp stages TS = 64 steps of the i and j streams in shared memory
+//     (upcast to f32: streams may be f32, bf16 or f16; all arithmetic is
+//     f32), loading each stage from global memory into registers while the
+//     stage before it computes. It buffers the rows and columns that
+//     complete in those steps and flushes them once per stage into global
+//     packed accumulators (order-preserving float bits high, index low)
+//     with atomicMax, skipped when a plain L2 read already shows a key at
+//     least as large; a second kernel unpacks them into corr / idx. Flushes
+//     are 2 per DB = 128 cells.
+//   * Work balance: one warp per 128 diagonals gives ~2000 blocks at
+//     n = 262144, ~15 warps per SM, all resident at once (72-81 registers,
+//     5 KB of shared memory each); blocks start longest first.
 //
-// Bound on this card: FP32 issue. Each cell costs ~9 operations (delta,
-// carry, corr, two max-compares) against a few bytes of streams per row, so
-// the bytes are ~MBs while the cells are ~1e10. This simple design spends
-// more instructions on the shared-memory round trip and the two reductions
-// than on the recurrence itself, and one atomic per row and column per tile
-// (1 per ~32 cells); the read-before-atomic check removes most atomics once
-// the profile has converged. More diagonals per thread (register tiles that
-// reduce without shared memory) is the next step.
+// Bound on this card: the function's FP32 operations (~9 per cell) put
+// its floor at the FP32 rate; the bytes are MBs against ~1e10 cells. The
+// kernel issues ~14.5 instructions per cell: per lane-step of 4 cells, 20
+// FP32 for the recurrence and the correlations, 26 compares and selects
+// for the two sides, 4 shuffles, 2 shared loads and the bookkeeping (four
+// rotations of DPT steps per loop trip). What holds it below that issue
+// rate is latency: a warp's step waits on its shuffles and its compare
+// chains, and at 128 diagonals per warp a sweep has only ~2-4 warps per
+// scheduler to cover the wait. `chip_smoke.py` times the kernel at 1, 2
+// and 4 warps per SM (`warps_per_sm_probe`).
 //
-// Tie order: within a tile the larger index wins (largest j on the row side,
-// largest i on the column side), as does the packed atomicMax across tiles;
-// the TPU kernel keeps the earlier tile. Indices may differ at exact ties.
+// Tie order: the larger index wins an exact tie (largest j on the row side,
+// largest i on the column side), within the warp by the order of the chains
+// and across blocks by the packed atomicMax, so the result is the key max
+// over all cells, bitwise the same from launch to launch; the TPU kernel
+// keeps the earlier tile. Indices may differ at exact ties.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -53,10 +82,15 @@
 
 namespace {
 
-constexpr int DB = 128;  // diagonals per block (= threads per block)
-constexpr int TR = 64;   // rows per tile
-constexpr int TW = TR + DB;  // j-window width of one tile
+constexpr int DPT = 4;                  // diagonals per lane
+constexpr int DB = 32 * DPT;            // diagonals per block (one warp)
+constexpr int TS = 64;                  // steps per stage
+constexpr int NI = TS + 32;             // i window: rows s0-31 .. s0+TS-1
+constexpr int NJ = TS + 32 * (DPT - 1);  // j window of a stage
 constexpr float NEG = -2.0f;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(TS % 32 == 0 && TS % DPT == 0 && NJ % 32 == 0,
+              "a stage is whole lanes and whole rotations");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -73,108 +107,188 @@ __device__ __forceinline__ float unordered(unsigned int o) {
   return __uint_as_float(u);
 }
 
-__device__ __forceinline__ void merge_max(unsigned long long* acc, float v, int idx) {
-  unsigned long long key =
-      (static_cast<unsigned long long>(ordered(v)) << 32) | static_cast<unsigned int>(idx);
-  // a stale read is never above the true value, so the skip is safe
-  if (key > __ldcg(acc)) atomicMax(acc, key);
+__device__ __forceinline__ unsigned long long packed_key(float v, int idx) {
+  return (static_cast<unsigned long long>(ordered(v)) << 32) | static_cast<unsigned int>(idx);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(DB)
+__global__ void __launch_bounds__(32)
 natsa_sweep(const T* __restrict__ df_i, const T* __restrict__ dg_i,
             const T* __restrict__ invn_i, const T* __restrict__ df_j,
             const T* __restrict__ dg_j, const T* __restrict__ invn_j,
             const float* __restrict__ cov0, int rows, int n_diag, int jp,
             int k_start, int k_end, int l_i, int l_j, int jpad,
             unsigned long long* row_acc, unsigned long long* col_acc) {
-  __shared__ float s_dfi[TR], s_dgi[TR], s_invi[TR];
-  __shared__ float s_dfj[TW], s_dgj[TW], s_invj[TW];
-  __shared__ float s_corr[TR][DB];
+  // (df, dg, invn, -) of each staged row and j entry: one 16-byte load each
+  __shared__ float4 s_i[NI], s_j[NJ];
+  // (value bits, index) of the rows leaving lane 31 and the columns leaving
+  // lane 0 in this stage
+  __shared__ int2 s_row[TS], s_col[TS];
 
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
+  const int lane = threadIdx.x;
   const int d0 = blockIdx.x * DB;
   const int kb = k_start + d0;          // first diagonal of the block
-  const int d = d0 + t;
-  const int k = kb + t;                 // this thread's diagonal
-  const bool live = d < n_diag && k < k_end;
-
   // rows where any diagonal of the block has a cell inside the rectangle
   const int lo = max(0, -(kb + DB - 1));
   const int hi = min(min(rows, l_i), l_j - kb);
   if (hi <= lo) return;
+  const float qnan = __int_as_float(0x7fffffff);
 
-  float cov = d < n_diag ? cov0[d] : 0.0f;
-
-  for (int r0 = lo; r0 < hi; r0 += TR) {
-    for (int x = t; x < TR; x += DB) {
-      const int i = r0 + x;
-      const bool in = i < rows;
-      s_dfi[x] = in ? to_f32(df_i[i]) : 0.0f;
-      s_dgi[x] = in ? to_f32(dg_i[i]) : 0.0f;
-      s_invi[x] = in ? to_f32(invn_i[i]) : -1.0f;
-    }
-    const int jb = r0 + kb + jpad;      // flat j position of window entry 0
-    for (int x = t; x < TW; x += DB) {
-      const int p = jb + x;
-      const bool in = p >= 0 && p < jp;
-      s_dfj[x] = in ? to_f32(df_j[p]) : 0.0f;
-      s_dgj[x] = in ? to_f32(dg_j[p]) : 0.0f;
-      s_invj[x] = in ? to_f32(invn_j[p]) : -1.0f;
-    }
-    __syncthreads();
-
-    // the recurrence: one diagonal per thread, rows in order
-#pragma unroll 8
-    for (int r = 0; r < TR; ++r) {
-      const int x = r + t;
-      cov += s_dfi[r] * s_dgj[x] + s_dfj[x] * s_dgi[r];
-      const int i = r0 + r;
-      const int j = i + k;
-      const float ii = s_invi[r];
-      const float ij = s_invj[x];
-      const bool valid = live && i < hi && j >= 0 && j < l_j && ii >= 0.0f && ij >= 0.0f;
-      s_corr[r][t] = valid ? cov * ii * ij : NEG;
-    }
-    __syncthreads();
-
-    // row side: warp w reduces rows w, w + 4, ... over the block's diagonals
-    for (int r = warp; r < TR; r += DB / 32) {
-      float best = NEG;
-      int bt = -1;
+  float cov[DPT], cv[DPT];
+  int ci[DPT];
 #pragma unroll
-      for (int q = 0; q < DB / 32; ++q) {
-        const int tt = lane + 32 * q;
-        const float v = s_corr[r][tt];
-        if (v > best || (v == best && tt > bt)) { best = v; bt = tt; }
-      }
+  for (int q = 0; q < DPT; ++q) {
+    const int d = d0 + DPT * lane + q;
+    cov[q] = (d < n_diag && k_start + d < k_end) ? cov0[d] : qnan;
+    cv[q] = NEG;
+    ci[q] = 0;
+  }
+  float rv = NEG;                       // row partial: value, diagonal offset
+  int rj = 0;
+  float edf[DPT], edg[DPT], einv[DPT];  // the lane's j window
+  const int xl = (DPT - 1) * lane;      // lane's offset in the j window
+  const int yl = 31 - lane;             // lane's offset in the i window
+  int row = lo - lane;                  // lane's row at the current step
+  // The stream entries of the next stage are loaded into registers while
+  // the current stage computes (global loads take hundreds of cycles); rows
+  // before lo and entries past the streams load as (0, 0, -1).
+  T gi[3][NI / 32], gj[3][NJ / 32];
+  auto load = [&](int s0) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int ot = __shfl_down_sync(0xffffffffu, bt, off);
-        if (ov > best || (ov == best && ot > bt)) { best = ov; bt = ot; }
-      }
-      if (lane == 0 && best > NEG) {
-        const int i = r0 + r;
-        merge_max(row_acc + i, best, i + kb + bt);
-      }
+    for (int c = 0; c < NI / 32; ++c) {
+      const int i = s0 - 31 + lane + 32 * c;
+      const bool in = i >= lo && i < rows;
+      gi[0][c] = in ? df_i[i] : T(0.0f);
+      gi[1][c] = in ? dg_i[i] : T(0.0f);
+      gi[2][c] = in ? invn_i[i] : T(-1.0f);
+    }
+#pragma unroll
+    for (int c = 0; c < NJ / 32; ++c) {
+      const int p = s0 + kb + jpad + lane + 32 * c;  // >= 0
+      const bool in = p < jp;
+      gj[0][c] = in ? df_j[p] : T(0.0f);
+      gj[1][c] = in ? dg_j[p] : T(0.0f);
+      gj[2][c] = in ? invn_j[p] : T(-1.0f);
+    }
+  };
+  load(lo);
+  // the last column leaves lane 0 at step hi + DB - 2
+  const int s_end = hi + DB - 1;
+  for (int s0 = lo; s0 < s_end; s0 += TS) {
+#pragma unroll
+    for (int c = 0; c < NI / 32; ++c) {
+      const int i = s0 - 31 + lane + 32 * c;
+      const float inv = to_f32(gi[2][c]);
+      s_i[lane + 32 * c] = make_float4(to_f32(gi[0][c]), to_f32(gi[1][c]),
+                                       (i < l_i && inv >= 0.0f) ? inv : qnan, 0.0f);
+    }
+    const int jb = s0 + kb + jpad;      // flat j of the window's entry 0
+#pragma unroll
+    for (int c = 0; c < NJ / 32; ++c) {
+      const int j = jb + lane + 32 * c - jpad;
+      const float inv = to_f32(gj[2][c]);
+      s_j[lane + 32 * c] = make_float4(to_f32(gj[0][c]), to_f32(gj[1][c]),
+                                       (j >= 0 && j < l_j && inv >= 0.0f) ? inv : qnan, 0.0f);
+    }
+    __syncwarp();
+    if (s0 + TS < s_end) load(s0 + TS);
+#pragma unroll
+    for (int q = 0; q < DPT - 1; ++q) {
+      const float4 nj = s_j[xl + q];
+      edf[q] = nj.x;
+      edg[q] = nj.y;
+      einv[q] = nj.z;
     }
 
-    // column side: local column c = r + tt holds the cells (r, c - r)
-    for (int c = t; c < TR + DB - 1; c += DB) {
-      float best = NEG;
-      int br = -1;
-      const int rlo = max(0, c - (DB - 1));
-      const int rhi = min(TR - 1, c);
-      for (int r = rlo; r <= rhi; ++r) {
-        const float v = s_corr[r][c - r];
-        if (v >= best) { best = v; br = r; }   // ties: the larger row
+#pragma unroll 4
+    for (int u = 0; u < TS; u += DPT) {
+#pragma unroll
+      for (int w = 0; w < DPT; ++w) {
+        const int st = u + w;
+        // cell q of this step reads window slot (w + q) % DPT; the new
+        // entry is cell DPT-1's
+        const int nw = (w + DPT - 1) % DPT;
+        const float4 nj = s_j[xl + st + DPT - 1];  // lane stride 16*(DPT-1) B
+        edf[nw] = nj.x;
+        edg[nw] = nj.y;
+        einv[nw] = nj.z;
+        const float4 fi = s_i[yl + st];
+        const float dfi = fi.x, dgi = fi.y, ii = fi.z;
+        float v[DPT];
+#pragma unroll
+        for (int q = 0; q < DPT; ++q) {
+          const int e = (w + q) % DPT;
+          cov[q] += dfi * edg[e] + edf[e] * dgi;
+          v[q] = cov[q] * ii * einv[e];
+        }
+        // row side: lane t-1's partial of this row, then this lane's cells
+        // in increasing j; `>=` lets the larger j win a tie. (An index
+        // beside NEG is never read, so lane 0 resets the value only.)
+        const float rin = __shfl_up_sync(FULL, rv, 1);
+        rj = __shfl_up_sync(FULL, rj, 1);
+        rv = lane == 0 ? NEG : rin;
+#pragma unroll
+        for (int q = 0; q < DPT; ++q) {
+          if (v[q] >= rv) {
+            rv = v[q];
+            rj = DPT * lane + q;
+          }
+        }
+        // column side: cell q continues the column in ring slot (w + q) %
+        // DPT; cell 0 completes its column in this lane, cell DPT-1 starts
+        // one from lane t+1's completed partial (its rows are all earlier,
+        // so `>=` lets the larger i win a tie)
+        const int e0 = w % DPT;
+        if (v[0] >= cv[e0]) {
+          cv[e0] = v[0];
+          ci[e0] = row;
+        }
+        const float done_v = cv[e0];
+        const int done_i = ci[e0];
+#pragma unroll
+        for (int q = 1; q < DPT - 1; ++q) {
+          const int e = (w + q) % DPT;
+          if (v[q] >= cv[e]) {
+            cv[e] = v[q];
+            ci[e] = row;
+          }
+        }
+        const float cin = __shfl_down_sync(FULL, done_v, 1);
+        const int iin = __shfl_down_sync(FULL, done_i, 1);
+        cv[nw] = lane == 31 ? NEG : cin;
+        ci[nw] = iin;
+        if (v[DPT - 1] >= cv[nw]) {
+          cv[nw] = v[DPT - 1];
+          ci[nw] = row;
+        }
+        if (lane == 31) s_row[st] = make_int2(__float_as_int(rv), rj);  // row s - 31
+        if (lane == 0) s_col[st] = make_int2(__float_as_int(done_v), done_i);  // column s + kb
+        ++row;
       }
-      if (best > NEG) merge_max(col_acc + jb + c, best, r0 + br);
     }
-    __syncthreads();
+    __syncwarp();
+    // flush: all keys first, then all L2 reads, then the atomics that raise
+    // a key (an entry left at NEG reads and compares against key 0)
+    unsigned long long* addr[2 * (TS / 32)];
+    unsigned long long key[2 * (TS / 32)], seen[2 * (TS / 32)];
+#pragma unroll
+    for (int c = 0; c < TS / 32; ++c) {
+      const int x = lane + 32 * c;
+      const int i = s0 + x - 31;
+      const int2 r = s_row[x], cl = s_col[x];
+      const float vr = __int_as_float(r.x), vc = __int_as_float(cl.x);
+      addr[2 * c] = vr > NEG ? row_acc + i : row_acc;
+      key[2 * c] = vr > NEG ? packed_key(vr, i + kb + r.y) : 0ull;
+      addr[2 * c + 1] = vc > NEG ? col_acc + jb + x : col_acc;
+      key[2 * c + 1] = vc > NEG ? packed_key(vc, cl.y) : 0ull;
+    }
+    // a stale read is never above the true value, so the skip is safe
+#pragma unroll
+    for (int c = 0; c < 2 * (TS / 32); ++c) seen[c] = __ldcg(addr[c]);
+#pragma unroll
+    for (int c = 0; c < 2 * (TS / 32); ++c)
+      if (key[c] > seen[c]) atomicMax(addr[c], key[c]);
+    __syncwarp();
   }
 }
 
@@ -197,7 +311,7 @@ void launch_sweep(const void* df_i, const void* dg_i, const void* invn_i,
                   unsigned long long* row_acc, unsigned long long* col_acc,
                   cudaStream_t stream) {
   const int blocks = (n_diag + DB - 1) / DB;
-  natsa_sweep<T><<<blocks, DB, 0, stream>>>(
+  natsa_sweep<T><<<blocks, 32, 0, stream>>>(
       static_cast<const T*>(df_i), static_cast<const T*>(dg_i),
       static_cast<const T*>(invn_i), static_cast<const T*>(df_j),
       static_cast<const T*>(dg_j), static_cast<const T*>(invn_j), cov0, rows,
@@ -248,4 +362,13 @@ extern "C" int natsa_mp_rowmax_ab(
     unpack<<<(col_len + threads - 1) / threads, threads, 0, s>>>(
         cacc, col_len, static_cast<float*>(col_corr), static_cast<int*>(col_idx));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of the sweep kernel: threads per block, diagonals per
+// block, steps per stage and dynamic shared memory in bytes (none).
+extern "C" void natsa_mp_launch_shape(int* out) {
+  out[0] = 32;
+  out[1] = DB;
+  out[2] = TS;
+  out[3] = 0;
 }

@@ -12,6 +12,11 @@ A CUDA tensor launches the kernel or raises; a CPU tensor runs
 which the tests and the chip smoke hold the kernel against. The TPU
 kernel's column banks (`col_tile`) do not exist here: the CUDA kernel
 merges into one flat column array with atomics.
+
+The CUDA kernel runs one warp per DIAGONALS_PER_BLOCK diagonals and stages
+the streams STEPS_PER_STAGE rows at a time (`launch_shape()` reads both
+from the built library); the edge cases of the tests and of `chip_smoke.py`
+are cut around these two numbers.
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ NEG = -2.0  # correlations live in [-1, 1]
 LAUNCHES = 0  # CUDA kernel launches in this process (bumped per launch)
 
 _STREAM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# the CUDA kernel's tiling (csrc/natsa_mp.cu: DB, TS)
+DIAGONALS_PER_BLOCK = 128
+STEPS_PER_STAGE = 64
 
 
 def row_harvest(tile: torch.Tensor):
@@ -62,7 +71,18 @@ def _lib():
     lib = _build.load("natsa_mp")
     lib.natsa_mp_rowmax_ab.argtypes = _ARGTYPES
     lib.natsa_mp_rowmax_ab.restype = ctypes.c_int
+    lib.natsa_mp_launch_shape.argtypes = [_P]
+    lib.natsa_mp_launch_shape.restype = None
     return lib
+
+
+def launch_shape() -> dict:
+    """The built kernel's launch shape: threads and diagonals per block,
+    rows per stage, dynamic shared memory in bytes."""
+    out = (ctypes.c_int * 4)()
+    _lib().natsa_mp_launch_shape(ctypes.cast(out, _P))
+    return dict(zip(("threads", "diagonals_per_block", "steps_per_stage",
+                     "dynamic_smem_bytes"), out))
 
 
 def _geometry(df_i, df_j, cov0, k_start: int, jpad: int, l_j: int):

@@ -7,6 +7,7 @@ where jax is not installed.
 """
 
 import ast
+import importlib.util
 import pathlib
 
 import numpy as np
@@ -19,6 +20,10 @@ from repro_torch.kernels import _build, flash_attn, natsa_mp, ops
 from repro_torch.utils.device import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+_SMOKE = importlib.util.spec_from_file_location("chip_smoke",
+                                                ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -93,8 +98,8 @@ def test_build_is_keyed_by_source_and_flags(monkeypatch):
 def _cases(device):
     """(args, kwargs) of kernel calls — the cases `chip_smoke.py` checks:
     a self-join with l not a multiple of any tile, NaN gaps, bf16 streams,
-    and the spans of an AB join (short side on rows) with exclusion 0 and
-    32."""
+    the spans of an AB join (short side on rows) with exclusion 0 and 32,
+    and the edge geometries of `chip_smoke.natsa_edge_cases`."""
     from repro_torch.core.zstats import (
         compute_cross_stats_host, compute_stats_host,
     )
@@ -119,6 +124,8 @@ def _cases(device):
             *args, _, _, jpad = ops._pad_streams_ab(cross, 256, 8, s0, s1)
             yield tuple(args), dict(k_start=s0, k_end=s1, l_i=cross.l_a,
                                     l_j=cross.l_b, jpad=jpad)
+    for case in chip_smoke.natsa_edge_cases():
+        yield from chip_smoke.edge_case_inputs(case, device)
 
 
 @pytest.mark.gpu
@@ -138,6 +145,30 @@ def test_cuda_kernel_matches_plain_version_on_card():
             assert not bool(((ik != ip) & (err >= 1e-4)).any())
         n += 1
     assert natsa_mp.LAUNCHES - before == n
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_is_bitwise_reproducible_on_card():
+    """Packed-key merges make the result independent of block order: four
+    launches on the same inputs give bitwise equal outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc) to run the NATSA kernel")
+    for args, kw in list(_cases("cuda"))[:4]:
+        outs = [natsa_mp.rowmax_profile_ab(*args, **kw) for _ in range(4)]
+        torch.cuda.synchronize()
+        for x, y in zip(outs[0], outs[-1]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_tiling_matches_the_python_constants_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc) to run the NATSA kernel")
+    shape = natsa_mp.launch_shape()
+    assert shape["threads"] == 32
+    assert shape["diagonals_per_block"] == natsa_mp.DIAGONALS_PER_BLOCK
+    assert shape["steps_per_stage"] == natsa_mp.STEPS_PER_STAGE
+    assert shape["dynamic_smem_bytes"] == 0
 
 
 FLASH_SHAPES = [                    # the reference's table

@@ -8,6 +8,9 @@ within 1e-4; an index may differ only where the two correlations are within
 1e-4 of each other.
 """
 
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,11 @@ from repro_torch.kernels import ops as tops
 
 TOL = 1e-4
 FIELDS = ("ts", "mu", "invn", "df", "dg", "cov0")
+
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 def _series(n, seed=0, kind="walk"):
@@ -135,6 +143,39 @@ def test_reduced_streams_match_reference_kernel(dtype):
     port = tops.rowmax_from_stats(port_stats, excl=6, it=it, dt=dt)
     _assert_agree([(ref[0], ref[1]), (ref[2], ref[3])],
                   [(port[0], port[1]), (port[2], port[3])])
+
+
+@pytest.mark.parametrize("case", chip_smoke.natsa_edge_cases(),
+                         ids=lambda c: c["name"])
+def test_edge_geometries_match_reference_kernel(case):
+    """The geometries cut around the CUDA kernel's tiles (one list with
+    `chip_smoke.py` and the card tests): stage and block edges, fewer
+    diagonals than a block or rows than a stage, a span ending inside a
+    block, negative diagonals, a NaN gap across a stage boundary."""
+    series = chip_smoke.edge_case_series(case)
+    m, it, dt = case["m"], case["it"], 8
+    if case["kind"] == "self":
+        ref_stats = rz.compute_stats_host(series[0], m)
+        ref = rops.rowmax_from_stats(ref_stats, excl=case["excl"], it=it,
+                                     dt=dt)
+        port_stats = tz.stats_from_arrays(_fields(ref_stats), m,
+                                          device="cpu")
+        port = tops.rowmax_from_stats(port_stats, excl=case["excl"], it=it,
+                                      dt=dt)
+        _assert_agree([(ref[0], ref[1]), (ref[2], ref[3])],
+                      [(port[0], port[1]), (port[2], port[3])])
+        return
+    cross = rz.compute_cross_stats_host(*series, m)
+    spans = tops.ab_spans(cross.l_a, cross.l_b, case["excl"])
+    assert spans
+    for s0, s1 in spans:
+        ins, jpad = _ab_inputs(cross, it, dt, s0, s1)
+        kw = dict(k_start=s0, k_end=s1, l_i=cross.l_a, l_j=cross.l_b,
+                  jpad=jpad)
+        ref = rk.rowmax_profile_ab(*ins, it=it, dt=dt, **kw)
+        port = tk.rowmax_profile_ab(*(_to_torch(x) for x in ins), **kw)
+        _assert_agree([(ref[0], ref[1]), (ref[2], ref[3])],
+                      [(port[0], port[1]), (port[2], port[3])])
 
 
 @pytest.mark.parametrize("block_elems", [1, 700, 1 << 24])
