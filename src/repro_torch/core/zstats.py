@@ -225,7 +225,9 @@ def compute_stats_host(ts, window: int, out_dtype=None, seed_dtype=None,
 def stats_from_arrays(fields: dict, window: int, device=None) -> ZStats:
     """Carry-over: build the port's `ZStats` from a reference `ZStats` read
     out as numpy arrays by field name (`ts`, `mu`, `invn`, `df`, `dg`,
-    `cov0`), bits unchanged, so both packages sweep identical streams."""
+    `cov0`), bits unchanged, so both packages sweep identical streams. A
+    batched reference stack (every field with a leading `(B,)` axis) gives
+    the stacked `ZStats` a batched plan executes."""
     dev = resolve_device(device)
     return ZStats(window=int(window),
                   **{f: _tensor(fields[f], dev) for f in _ZFIELDS})
@@ -234,11 +236,103 @@ def stats_from_arrays(fields: dict, window: int, device=None) -> ZStats:
 def cross_stats_from_arrays(fields: dict, window: int,
                             device=None) -> CrossStats:
     """`stats_from_arrays` for a `CrossStats`: `fields` holds `a` and `b`
-    (each a field dict as above) and `cov0s`."""
+    (each a field dict as above) and `cov0s`, single or stacked."""
     dev = resolve_device(device)
     return CrossStats(a=stats_from_arrays(fields["a"], window, dev),
                       b=stats_from_arrays(fields["b"], window, dev),
                       cov0s=_tensor(fields["cov0s"], dev))
+
+
+def stack_stats(parts: list):
+    """Per-series `ZStats` or `CrossStats` of one shape -> one stacked
+    payload, every field with a leading `(B,)` axis (what a batched plan
+    executes; the reference stacks with `jax.tree.map(jnp.stack, ...)`)."""
+    first = parts[0]
+    if isinstance(first, CrossStats):
+        return CrossStats(a=stack_stats([p.a for p in parts]),
+                          b=stack_stats([p.b for p in parts]),
+                          cov0s=torch.stack([p.cov0s for p in parts]))
+    return dataclasses.replace(first, **{
+        f: torch.stack([getattr(p, f) for p in parts]) for f in _ZFIELDS})
+
+
+def unstack_stats(stack) -> list:
+    """`stack_stats` undone: a stacked payload -> its per-series views."""
+    if isinstance(stack, CrossStats):
+        return [CrossStats(a=a, b=b, cov0s=c) for a, b, c in zip(
+            unstack_stats(stack.a), unstack_stats(stack.b), stack.cov0s)]
+    return [dataclasses.replace(stack, **{f: getattr(stack, f)[r]
+                                          for f in _ZFIELDS})
+            for r in range(stack.mu.shape[0])]
+
+
+# -- in-graph stats ------------------------------------------------------------
+#
+# Torch twins of the reference's in-graph stream prep, on the device of
+# their input and in its dtype. They cancel catastrophically in f32 on
+# series with a level (E[x^2] - E[x]^2, qt0 - m mu0 muk), which is why the
+# entry points use `compute_stats_host`; the dot products are a product and
+# a sum, never a matmul, so no TF32 mode touches them on the card.
+
+
+def moving_mean_var(ts: torch.Tensor, m: int):
+    """Sliding mean and population variance over windows of length `m`,
+    from cumulative sums; the variance is clamped at 0 against
+    cancellation."""
+    zero = ts.new_zeros(1)
+    csum = torch.cat([zero, torch.cumsum(ts, 0)])
+    csq = torch.cat([zero, torch.cumsum(ts * ts, 0)])
+    mu = (csum[m:] - csum[:-m]) / m
+    var = torch.clamp((csq[m:] - csq[:-m]) / m - mu * mu, min=0.0)
+    return mu, var
+
+
+def sliding_dot(query: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """dot(query, ts[k:k+m]) for every k: O(n m), vectorized."""
+    return (ts.unfold(0, query.shape[0], 1) * query).sum(dim=-1)
+
+
+def compute_stats(ts, window: int, *, device=None) -> ZStats:
+    """All NATSA streams of a 1-D FINITE series, computed in its own dtype
+    on `device` (default the CUDA card; a float tensor's dtype is kept, a
+    numpy array's too). Use `compute_stats_host` for series with NaN/Inf
+    gaps or a level: it masks the gaps and computes in f64."""
+    dev = resolve_device(device)
+    ts = torch.as_tensor(ts, device=dev)
+    if not ts.is_floating_point():
+        ts = ts.float()
+    if ts.ndim != 1:
+        raise ValueError(f"time series must be 1-D, got shape "
+                         f"{tuple(ts.shape)}")
+    m = int(window)
+    n = ts.shape[0]
+    if n < 2 * m:
+        raise ValueError(f"series too short: n={n} < 2*window={2 * m}")
+    mu, var = moving_mean_var(ts, m)
+    # flat windows (norm 0) get invn 0: corr 0 against everything
+    norm = torch.sqrt(var * m)
+    invn = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+    l = n - m + 1
+    tail, head = ts[m:], ts[:l - 1]
+    zero = ts.new_zeros(1)
+    df = torch.cat([zero, (tail[:l - 1] - head) / 2.0])
+    dg = torch.cat([zero, (tail[:l - 1] - mu[1:]) + (head - mu[:-1])])
+    cov0 = sliding_dot(ts[:m], ts) - m * mu[0] * mu
+    return ZStats(ts=ts, mu=mu, invn=invn, df=df, dg=dg, cov0=cov0, window=m)
+
+
+def compute_stats_jit(ts, window: int, *, device=None) -> ZStats:
+    """`compute_stats` under the reference's jitted name (torch has no
+    trace-and-compile step to add)."""
+    return compute_stats(ts, window, device=device)
+
+
+def cov_row(stats: ZStats, row: int) -> torch.Tensor:
+    """cov(row, row + k) for all k in [0, l - row), evaluated directly — an
+    independent check of the diagonal recurrence."""
+    m = stats.window
+    q = stats.ts[row:row + m]
+    return sliding_dot(q, stats.ts[row:]) - m * stats.mu[row] * stats.mu[row:]
 
 
 def corr_to_dist(corr: torch.Tensor, window: int) -> torch.Tensor:

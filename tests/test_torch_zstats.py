@@ -176,3 +176,133 @@ def test_precision_validation():
         tprec.as_precision(3)
     assert tprec.torch_dtype(None) == torch.float32
     assert tprec.torch_dtype(torch.float16) == torch.float16
+
+
+# -- in-graph stats (compute_stats, moving_mean_var, sliding_dot, cov_row) --
+#
+# f64: the reference runs under `jax.enable_x64(True)` on the same f64
+# series; each array agrees within 1e-12 of its own scale (max |ref|): the
+# two packages add their cumulative sums in other orders. On a series with
+# a level, invn and cov0 cancel (E[x^2] - E[x]^2, qt0 - m mu0 muk, as the
+# reference's docstring says): there the order gap grows by the level's
+# square over the window variance, and the test states that bound. f32: held
+# on zero-mean series only, within F32_TOL of each array's scale. Flat
+# windows are not compared: the in-graph variance of a constant window is a
+# cumsum residue, so its invn is 0 in one order and huge in another (the
+# host prep's relative guard exists for that).
+
+F32_TOL = 2e-5
+LEVEL_TOL = 1e-10      # level 50 over window variances of ~2: ~1e3 x 1e-13
+INGRAPH = ("mu", "invn", "df", "dg", "cov0")
+
+
+def _zero_mean(kind: str, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        return rng.normal(size=n)
+    if kind == "walk":
+        return np.cumsum(rng.normal(size=n))
+    t = np.arange(n)
+    return np.sin(2 * np.pi * t / 29) + 0.1 * rng.normal(size=n)
+
+
+def _assert_scaled(port, ref, tol, name=""):
+    r = np.asarray(ref, np.float64)
+    p = port.double().numpy() if isinstance(port, torch.Tensor) else port
+    assert p.shape == r.shape, name
+    np.testing.assert_allclose(p, r, rtol=0, atol=tol * np.abs(r).max(),
+                               err_msg=name)
+
+
+def _ref_ingraph(ts, m, row):
+    with jax.enable_x64(True):
+        x = jnp.asarray(ts, jnp.float64)
+        ref = jax.tree.map(np.asarray, rz.compute_stats(x, m))
+        ref_jit = jax.tree.map(np.asarray, rz.compute_stats_jit(x, m))
+        mv = tuple(np.asarray(v) for v in rz.moving_mean_var(x, m))
+        ref_row = np.asarray(rz.cov_row(rz.compute_stats(x, m), row))
+    return ref, ref_jit, mv, ref_row
+
+
+@pytest.mark.parametrize("kind", ["walk", "noise", "sine"])
+@pytest.mark.parametrize("n,m", [(320, 24), (257, 16)])
+def test_compute_stats_matches_reference_f64(kind, n, m):
+    ts = _zero_mean(kind, n, seed=n)
+    ref, ref_jit, (ref_mu, ref_var), ref_row = _ref_ingraph(ts, m, 37)
+    port = tz.compute_stats(ts, m, device="cpu")
+    port_jit = tz.compute_stats_jit(ts, m, device="cpu")
+    assert port.df.dtype == torch.float64 and port.window == m
+    for f in INGRAPH:
+        _assert_scaled(getattr(port, f), getattr(ref, f), 1e-12, f)
+        _assert_scaled(getattr(port_jit, f), getattr(ref_jit, f), 1e-12, f)
+    mu, var = tz.moving_mean_var(torch.from_numpy(ts), m)
+    _assert_scaled(mu, ref_mu, 1e-12, "mu")
+    _assert_scaled(var, ref_var, 1e-12, "var")
+    _assert_scaled(tz.cov_row(port, 37), ref_row, 1e-12, "cov_row")
+
+
+def test_compute_stats_with_a_level_f64():
+    ts = _zero_mean("walk", 320, seed=1) + 50.0
+    ref, _, _, ref_row = _ref_ingraph(ts, 24, 37)
+    port = tz.compute_stats(ts, 24, device="cpu")
+    for f in ("mu", "df", "dg"):
+        _assert_scaled(getattr(port, f), getattr(ref, f), 1e-12, f)
+    for f in ("invn", "cov0"):
+        _assert_scaled(getattr(port, f), getattr(ref, f), LEVEL_TOL, f)
+    _assert_scaled(tz.cov_row(port, 37), ref_row, LEVEL_TOL, "cov_row")
+
+
+@pytest.mark.parametrize("kind", ["noise", "sine"])
+def test_compute_stats_matches_reference_f32_zero_mean(kind):
+    ts = _zero_mean(kind, 400, seed=3).astype(np.float32)
+    m = 20
+    ref = jax.tree.map(np.asarray, rz.compute_stats(jnp.asarray(ts), m))
+    port = tz.compute_stats(torch.from_numpy(ts), m, device="cpu")
+    assert port.df.dtype == torch.float32
+    for f in INGRAPH:
+        _assert_scaled(getattr(port, f), getattr(ref, f), F32_TOL, f)
+    q = ts[5:5 + m]
+    _assert_scaled(tz.sliding_dot(torch.from_numpy(q), torch.from_numpy(ts)),
+                   rz.sliding_dot(jnp.asarray(q), jnp.asarray(ts)), F32_TOL,
+                   "sliding_dot")
+    _assert_scaled(tz.cov_row(port, 101),
+                   rz.cov_row(rz.compute_stats(jnp.asarray(ts), m), 101),
+                   F32_TOL, "cov_row")
+
+
+def test_cov_row_checks_the_recurrence():
+    """`cov_row` is the direct evaluation the recurrence must reproduce:
+    cov(i, i + k) from `cov0` plus the deltas equals the direct dots."""
+    ts = _zero_mean("noise", 300, seed=4)
+    s = tz.compute_stats(ts, 16, device="cpu")
+    k = torch.arange(s.n_subsequences - 40)
+    cov = s.cov0[k].clone()
+    for i in range(1, 41):
+        cov = cov + s.df[i] * s.dg[i + k] + s.df[i + k] * s.dg[i]
+    torch.testing.assert_close(cov, tz.cov_row(s, 40), rtol=0, atol=1e-10)
+
+
+def test_compute_stats_errors():
+    with pytest.raises(ValueError, match="too short"):
+        tz.compute_stats(np.zeros(30), 16, device="cpu")
+    with pytest.raises(ValueError, match="1-D"):
+        tz.compute_stats(np.zeros((2, 64)), 8, device="cpu")
+
+
+def test_batched_carry_over_and_stacks():
+    """A batched reference stack carries over bit for bit, and
+    `unstack_stats(stack_stats(x))` gives each series back."""
+    series = [_series("walk", 200, seed=s) for s in range(3)]
+    ref = [rz.compute_stats_host(s, 16) for s in series]
+    stacked = jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                           *ref)
+    port = tz.stats_from_arrays({f: getattr(stacked, f) for f in FIELDS}, 16,
+                                device="cpu")
+    assert port.df.shape == (3, 185)
+    for r, one in enumerate(tz.unstack_stats(port)):
+        _assert_bitwise(ref[r], one)
+    cross = [tz.compute_cross_stats_host(s, series[0][:90], 16, device="cpu")
+             for s in series]
+    back = tz.unstack_stats(tz.stack_stats(cross))
+    for c, d in zip(cross, back):
+        assert torch.equal(c.cov0s, d.cov0s) and torch.equal(c.b.df, d.b.df)
