@@ -94,6 +94,99 @@ class SplitProfile:
     left: ProfileState
 
 
+@dataclasses.dataclass
+class TopKState:
+    """Running exact top-k profile: `(L, k)` best-first correlations and
+    neighbours — the k > 1 analogue of `ProfileState` and `ColState` in one
+    class. `merge` is the union of two best-first sets (exact: every sweep
+    evaluates each cell once, so no neighbour is offered twice) and
+    `merge_window` the same union over a window of a padded index space, in
+    place. Unfilled slots are (NEG, -1); ties resolve to the accumulator
+    side, so all-NEG windows merge as no-ops."""
+
+    corr: torch.Tensor    # (L, k) accum dtype, best-first along the last axis
+    index: torch.Tensor   # (L, k) int32 neighbour (or -1)
+
+    @classmethod
+    def empty(cls, l: int, k: int, fill: float = NEG, dtype=torch.float32,
+              device=None) -> "TopKState":
+        return cls(corr=torch.full((l, k), fill, dtype=dtype, device=device),
+                   index=torch.full((l, k), -1, dtype=torch.int32,
+                                    device=device))
+
+    @classmethod
+    def from_arrays(cls, corr, index, device=None) -> "TopKState":
+        """Carry-over: a reference `TopKState` read out as numpy arrays,
+        bits unchanged (leading batch axes allowed)."""
+        from repro_torch.core.zstats import _tensor
+        from repro_torch.utils.device import resolve_device
+
+        dev = resolve_device(device)
+        return cls(corr=_tensor(corr, dev), index=_tensor(index, dev))
+
+    @property
+    def k(self) -> int:
+        return self.corr.shape[-1]
+
+    def merge(self, other: "TopKState") -> "TopKState":
+        return TopKState(*_topk_union(self.corr, self.index, other.corr,
+                                      other.index, self.k))
+
+    def merge_window(self, win, win_i, start: int) -> "TopKState":
+        w = win.shape[0]
+        s = _clamp_start(start, self.corr.shape[0], w)
+        c, i = _topk_union(self.corr[s:s + w], self.index[s:s + w], win,
+                           win_i, self.k)
+        self.corr[s:s + w] = c
+        self.index[s:s + w] = i
+        return self
+
+    def to_state(self, pad_left: int, l_out: int) -> "TopKState":
+        return TopKState(corr=self.corr[pad_left:pad_left + l_out],
+                         index=self.index[pad_left:pad_left + l_out])
+
+    @property
+    def best(self) -> ProfileState:
+        """Slot 0: the same VALUES as the k = 1 profile (max == top-1)."""
+        return ProfileState(corr=self.corr[..., 0], index=self.index[..., 0])
+
+    def to_distance(self, window: int) -> torch.Tensor:
+        return profile_distance(self.corr, window)
+
+
+def _topk_union(c1, i1, c2, i2, k: int):
+    """Exact best-first union of two neighbour sets along the last axis.
+    A STABLE descending sort, as `lax.top_k` is stable: at equal values
+    the first set (the accumulator) and then the lower slot win, on every
+    device (`torch.topk` promises no order among ties)."""
+    c = torch.cat([c1, c2], dim=-1)
+    i = torch.cat([i1, i2], dim=-1)
+    vals, pos = torch.sort(c, dim=-1, descending=True, stable=True)
+    return vals[..., :k], torch.gather(i, -1, pos[..., :k])
+
+
+def _topk_rows(tile: torch.Tensor, k: int):
+    """Top-k of a (D, L) tile over its first axis: (L, k) best-first values
+    and the offsets d attaining them (int32), equal values in ascending d —
+    what the stable `lax.top_k` gives. k rounds of a max, the first d that
+    attains it, and a knock-out of that cell, so the tile is OVERWRITTEN:
+    callers hand over a tile they are done with. Needs k <= D (the planner
+    enforces k <= band, and k <= min(l_a, l_b) for rowstream)."""
+    D, L = tile.shape
+    dd = torch.arange(D, dtype=torch.int32, device=tile.device)[:, None]
+    vals = tile.new_empty((L, k))
+    ds = torch.empty((L, k), dtype=torch.int32, device=tile.device)
+    for s in range(k):
+        best = tile.max(dim=0).values
+        d = torch.where(tile == best, dd, D).min(dim=0).values
+        vals[:, s] = best
+        ds[:, s] = d
+        if s + 1 < k:
+            # clamped: a NaN cell matches nothing and must not index past D
+            tile.scatter_(0, d.clamp(max=D - 1).long()[None, :], -torch.inf)
+    return vals, ds
+
+
 def centered_windows(stats: ZStats) -> torch.Tensor:
     """(l, m) matrix of centered subsequences, in the streams' dtype — used
     only for reseeding."""
@@ -108,12 +201,29 @@ def _col_window(corr: torch.Tensor, fill: float):
     flattening and re-wrapping one element shorter gives skew[d, t] =
     corr[d, t - d]. Returns (win (li + D,), win_i): entry t belongs to
     column k0 + t, with its winning row t - d (or -1)."""
-    D, li = corr.shape
-    W = li + D
-    p = F.pad(corr, (0, D + 1), value=fill)
-    skew = p.reshape(-1)[:-D].reshape(D, W)
-    win, d_win = row_harvest(skew)
+    W = corr.shape[1] + corr.shape[0]
+    win, d_win = row_harvest(_skew(corr, fill))
     win_i = (torch.arange(W, device=corr.device) - d_win).to(torch.int32)
+    return win, torch.where(win > fill, win_i, -1).to(torch.int32)
+
+
+def _skew(corr: torch.Tensor, fill: float) -> torch.Tensor:
+    """(D, li + D) skew[d, t] = corr[d, t - d] (`fill` outside), in memory
+    of its own: each row padded by D + 1, flattened and re-wrapped one
+    element shorter."""
+    D, li = corr.shape
+    p = F.pad(corr, (0, D + 1), value=fill)
+    return p.reshape(-1)[:-D].reshape(D, li + D)
+
+
+def _topk_col_window(corr: torch.Tensor, k: int, fill: float = NEG):
+    """Top-k column-side harvest of one band tile: `_col_window`'s skew,
+    then a top-k instead of a max. Returns ((li + D, k) win, win_i): entry
+    t is the best-k set ENDING at column k0 + t with its rows t - d (or
+    -1). `corr` is left as it was."""
+    W = corr.shape[1] + corr.shape[0]
+    win, d_win = _topk_rows(_skew(corr, fill), k)
+    win_i = (torch.arange(W, device=corr.device)[:, None] - d_win)
     return win, torch.where(win > fill, win_i, -1).to(torch.int32)
 
 
@@ -338,6 +448,61 @@ def profile_from_stats(stats: ZStats, exclusion: int,
     return SplitProfile(merged=rows.merge(col), right=rows, left=col)
 
 
+def band_topk(stats: ZStats, k0: int, band: int, k: int, *,
+              reseed_every: int | None = None,
+              windows_c: torch.Tensor | None = None,
+              accum_dtype=torch.float32):
+    """`band_rowmax` widened to exact top-k: (row (l, k), row_idx, win
+    (l + band, k), win_i) off the same correlation tile. Within one tile a
+    position's candidates lie on distinct diagonals, so the per-tile top-k
+    is exact and the union across bands stays exact."""
+    l = stats.n_subsequences
+    corr = _band_corr(stats, k0, band, reseed_every, windows_c, accum_dtype)
+    win, win_i = _topk_col_window(corr, k)
+    vals, d = _topk_rows(corr, k)                  # consumes the tile
+    i = torch.arange(l, device=corr.device)
+    idx = torch.where(vals > NEG, i[:, None] + k0 + d, -1).to(torch.int32)
+    return vals, idx, win, win_i
+
+
+def chunk_topk(stats: ZStats, k0: int, k1_static: int, band: int, k: int,
+               reseed_every: int | None = DEFAULT_RESEED,
+               accum_dtype=torch.float32):
+    """Top-k analogue of `chunk_rowmax_split`: (right (l, k), left (l, k))
+    exact best-first neighbour sets over diagonals [k0, k0 + k1_static)."""
+    l = stats.n_subsequences
+    dev = stats.df.device
+    wc = (centered_windows(stats).to(accum_dtype)
+          if reseed_every is not None else None)
+    rows = TopKState.empty(l, k, dtype=accum_dtype, device=dev)
+    col = TopKState.empty(2 * l + band, k, dtype=accum_dtype, device=dev)
+    for b in range(-(-k1_static // band)):
+        start = k0 + b * band
+        rc, ri, win, wi = band_topk(stats, start, band, k,
+                                    reseed_every=reseed_every, windows_c=wc,
+                                    accum_dtype=accum_dtype)
+        rows = rows.merge(TopKState(rc, ri))
+        col.merge_window(win, wi, start)
+    return rows, col.to_state(0, l)
+
+
+def profile_topk_from_stats(stats: ZStats, exclusion: int,
+                            band: int = DEFAULT_BAND,
+                            reseed_every: int | None = DEFAULT_RESEED,
+                            k: int = 4, *, accum_dtype: str = "float32"):
+    """Exact top-k self-join -> (merged, right, left) `(l, k)` best-first
+    sets from one sweep. Slot 0 of `merged` holds the k = 1 profile's
+    values; with exclusion >= 1 (the planner refuses 0 for top-k) the row
+    and column candidates are disjoint (j > i against j < i), so the union
+    is exact."""
+    from repro_torch.core.precision import torch_dtype
+
+    l = stats.n_subsequences
+    rows, col = chunk_topk(stats, int(exclusion), l - int(exclusion), band,
+                           k, reseed_every, torch_dtype(accum_dtype))
+    return rows.merge(col), rows, col
+
+
 # -- AB engine: the signed diagonal space of the rectangle --------------------
 #
 # Diagonal k = j - i in [-(l_a-1), l_b) starts at cell (max(0,-k), max(0,k))
@@ -529,21 +694,214 @@ def ab_join_from_stats(cross: CrossStats, exclusion: int = 0,
         if two_sided else None
     kw = dict(two_sided=two_sided, clamp_rows=clamp_rows, col_tile=col_tile,
               accum_dtype=acc)
-    if excl == 0:
-        spans = [(-(la - 1), la - 1 + lb, lb)]
-    else:
-        spans = []
-        if la - excl > 0:          # diagonals [-(l_a-1), -excl]
-            spans.append((-(la - 1), la - excl, -excl + 1))
-        if lb - excl > 0:          # diagonals [excl, l_b)
-            spans.append((excl, lb - excl, lb))
-    for k0, width, k_hi in spans:
+    for k0, width, k_hi in _ab_engine_spans(la, lb, excl):
         sa, sb = chunk_rowmax_ab(cross, k0, width, band, reseed_every,
                                  k_hi=k_hi, **kw)
         state_a = state_a.merge(sa)
         if two_sided:
             state_b = state_b.merge(sb)
     return state_a, state_b
+
+
+def _ab_engine_spans(la: int, lb: int, excl: int) -> list[tuple]:
+    """(k0, width, k_hi) of each signed-diagonal span of an AB sweep: one
+    span with no exclusion (diagonal 0 evaluated once), else the negative
+    [-(l_a-1), -excl] and the positive [excl, l_b) spans."""
+    if excl == 0:
+        return [(-(la - 1), la - 1 + lb, lb)]
+    spans = []
+    if la - excl > 0:
+        spans.append((-(la - 1), la - excl, -excl + 1))
+    if lb - excl > 0:
+        spans.append((excl, lb - excl, lb))
+    return spans
+
+
+def band_topk_ab(cross: CrossStats, k0: int, band: int, k: int, *,
+                 k_hi=None, reseed_every: int | None = None, wa=None,
+                 wb=None, harvest_cols: bool = True, clamp_rows: bool = True,
+                 padded=None, accum_dtype=torch.float32):
+    """`band_rowmax_ab` widened to exact top-k: ((li, k) row window,
+    row_idx, (li + band, k) column window, win_i, i0) off the same tile."""
+    corr, i, i0 = _band_corr_ab(cross, k0, band, k_hi=k_hi,
+                                reseed_every=reseed_every, wa=wa, wb=wb,
+                                clamp_rows=clamp_rows, padded=padded,
+                                accum_dtype=accum_dtype)
+    win = win_i = None
+    if harvest_cols:
+        win, win_i = _topk_col_window(corr, k)
+        win_i = torch.where(win > NEG, win_i + i0, -1).to(torch.int32)
+    vals, d = _topk_rows(corr, k)                  # consumes the tile
+    idx = torch.where(vals > NEG, i[:, None] + k0 + d, -1).to(torch.int32)
+    return vals, idx, win, win_i, i0
+
+
+def chunk_topk_ab(cross: CrossStats, k0: int, width_static: int, band: int,
+                  k: int, reseed_every: int | None = DEFAULT_RESEED,
+                  k_hi=None, two_sided: bool = True,
+                  accum_dtype=torch.float32):
+    """Top-k analogue of `chunk_rowmax_ab`: (state_a (l_a, k), state_b
+    (l_b, k) or None) over signed diagonals [k0, k0 + width_static), with
+    row-clamped tiles. Both sides merge as bounded `(w, k)` windows into
+    padded `TopKState`s; there is no banked top-k accumulator, so top-k
+    plans accumulate flat."""
+    acc = accum_dtype
+    la, lb = cross.l_a, cross.l_b
+    dev = cross.cov0s.device
+    reseed_every = ab_reseed(la, lb, reseed_every)
+    wa = centered_windows(cross.a) if reseed_every is not None else None
+    wb = centered_windows(cross.b) if reseed_every is not None else None
+    li = ab_row_tile(la, lb, band)
+    padded = _ab_padded_streams(cross, band, li)
+    pad_l = la - 1                 # most negative valid diagonal start
+    rows = TopKState.empty(la + li, k, dtype=acc, device=dev)
+    col = (TopKState.empty(pad_l + lb + li + 2 * band, k, dtype=acc,
+                           device=dev) if two_sided else None)
+    for b in range(-(-width_static // band)):
+        start = k0 + b * band
+        ra, ia, win, wi, i0 = band_topk_ab(
+            cross, start, band, k, k_hi=k_hi, reseed_every=reseed_every,
+            wa=wa, wb=wb, harvest_cols=two_sided, padded=padded,
+            accum_dtype=acc)
+        rows.merge_window(ra, ia, i0)
+        if two_sided:
+            col.merge_window(win, wi, start + i0 + pad_l)
+    return (rows.to_state(0, la),
+            col.to_state(pad_l, lb) if two_sided else None)
+
+
+def ab_join_topk_from_stats(cross: CrossStats, exclusion: int = 0,
+                            band: int = DEFAULT_BAND,
+                            reseed_every: int | None = DEFAULT_RESEED,
+                            two_sided: bool = True, k: int = 4, *,
+                            accum_dtype: str = "float32"):
+    """Exact top-k AB join: `(l_a, k)` (and `(l_b, k)` with `two_sided`)
+    best-first sets from one signed-diagonal sweep, with the spans of
+    `ab_join_from_stats`."""
+    from repro_torch.core.precision import torch_dtype
+
+    acc = torch_dtype(accum_dtype)
+    la, lb = cross.l_a, cross.l_b
+    dev = cross.cov0s.device
+    state_a = TopKState.empty(la, k, dtype=acc, device=dev)
+    state_b = (TopKState.empty(lb, k, dtype=acc, device=dev)
+               if two_sided else None)
+    for k0, width, k_hi in _ab_engine_spans(la, lb, int(exclusion)):
+        sa, sb = chunk_topk_ab(cross, k0, width, band, k, reseed_every,
+                               k_hi=k_hi, two_sided=two_sided,
+                               accum_dtype=acc)
+        state_a = state_a.merge(sa)
+        if two_sided:
+            state_b = state_b.merge(sb)
+    return state_a, state_b
+
+
+# -- rowstream AB sweep ---------------------------------------------------------
+#
+# The rectangle's other natural tiling: one pass over A's rows, each step a
+# vectorized O(l_b) update of the carried covariance row
+#     QT(i, j) = QT(i-1, j-1) + df_a[i] dg_b[j] + df_b[j] dg_a[i],
+# with the j = 0 cell seeded exactly from `cov0s` (it starts diagonal -i).
+# The reference's `lax.scan` is a Python loop over Python-int rows here: no
+# step reads a value back to the host, so the card runs the steps as they
+# are queued. The planner sends short sides (<= AB_ROWSTREAM_MAX_ROWS rows)
+# here only where the CUDA kernel cannot go (k > 1, batches) or when asked.
+
+# rows of the short side up to which the reference's planner prefers the
+# row-streamed sweep
+AB_ROWSTREAM_MAX_ROWS = 4096
+
+
+def _rowstream_rows(cross: CrossStats, exclusion: int,
+                    reseed_every: int | None, acc):
+    """Yield (i, corr_i) for every row i of A: the (l_b,) correlation row,
+    NEG where masked (a missing window, or |j - i| < exclusion). Rows at
+    multiples of the reseed period replace the carry with exact centered
+    dots (a product and a sum, as `_exact_seeds`, so no TF32 mode touches
+    them);
+    `ab_reseed` drops the period where no diagonal outruns it."""
+    sa, sb = cross.a, cross.b
+    la, lb = cross.l_a, cross.l_b
+    excl = int(exclusion)
+    R = ab_reseed(la, lb, reseed_every)
+    dfa, dga, invna = (x.to(acc) for x in (sa.df, sa.dg, sa.invn))
+    dfb, dgb, invnb = (x.to(acc) for x in (sb.df, sb.dg, sb.invn))
+    cov0s = cross.cov0s.to(acc)
+    seeds_neg = cov0s[:la].flip(0)                     # cov(i, 0)
+    if R is None:
+        exact = [cov0s[la - 1:]]                       # cov(0, j)
+    else:
+        wa = centered_windows(sa).to(acc)
+        wb = centered_windows(sb).to(acc)
+        exact = [(wb * wa[r]).sum(dim=-1) for r in range(0, la, int(R))]
+        del wa, wb
+    keep_b = invnb >= 0
+    qt = None
+    for i in range(la):
+        if (R is None and i == 0) or (R is not None and i % R == 0):
+            qt = exact[0 if R is None else i // R]
+        else:
+            delta = dfa[i] * dgb + dfb * dga[i]
+            qt = torch.cat([seeds_neg[i:i + 1], qt[:-1] + delta[1:]])
+        corr = qt * invnb * invna[i]
+        # missing-data sentinel (invn < 0): masked pairs lose unconditionally
+        corr = torch.where(keep_b & (invna[i] >= 0), corr, NEG)
+        if excl > 0:
+            corr[max(0, i - excl + 1):min(lb, i + excl)] = NEG
+        yield i, corr
+
+
+def ab_join_rowstream(cross: CrossStats, exclusion: int = 0,
+                      reseed_every: int | None = DEFAULT_RESEED, *,
+                      accum_dtype: str = "float32"):
+    """Row-streamed AB join -> (state_a (l_a,), state_b (l_b,)): each row's
+    max is A's profile (plain max, then the largest column attaining it),
+    the running elementwise max over rows is B's (an earlier row keeps a
+    tie)."""
+    from repro_torch.core.precision import torch_dtype
+
+    acc = torch_dtype(accum_dtype)
+    la, lb = cross.l_a, cross.l_b
+    dev = cross.cov0s.device
+    jj = torch.arange(lb, device=dev)
+    pa = torch.empty(la, dtype=acc, device=dev)
+    ja = torch.empty(la, dtype=torch.int64, device=dev)
+    pb = torch.full((lb,), NEG, dtype=acc, device=dev)
+    ib = torch.full((lb,), -1, dtype=torch.int32, device=dev)
+    for i, corr in _rowstream_rows(cross, exclusion, reseed_every, acc):
+        take = corr > pb
+        pb = torch.where(take, corr, pb)
+        ib = torch.where(take, i, ib)
+        mx = corr.max()
+        pa[i] = mx
+        ja[i] = torch.where(corr >= mx, jj, -1).max()
+    ja = torch.where(pa > NEG, ja, -1).to(torch.int32)
+    return ProfileState(pa, ja), ProfileState(pb, ib)
+
+
+def ab_join_rowstream_topk(cross: CrossStats, exclusion: int = 0,
+                           reseed_every: int | None = DEFAULT_RESEED,
+                           k: int = 4, *, accum_dtype: str = "float32"):
+    """Row-streamed AB join with exact top-k on both sides -> (TopKState
+    (l_a, k), TopKState (l_b, k)): the same rows as `ab_join_rowstream`;
+    each row keeps its k best columns (every candidate of the row is
+    present) and B runs the `(l_b, k)` union with one new candidate per
+    column per row."""
+    from repro_torch.core.precision import torch_dtype
+
+    acc = torch_dtype(accum_dtype)
+    la, lb = cross.l_a, cross.l_b
+    dev = cross.cov0s.device
+    pa = torch.empty((la, k), dtype=acc, device=dev)
+    ja = torch.empty((la, k), dtype=torch.int32, device=dev)
+    tb = TopKState.empty(lb, k, dtype=acc, device=dev)
+    for i, corr in _rowstream_rows(cross, exclusion, reseed_every, acc):
+        cand_i = torch.where(corr > NEG, i, -1).to(torch.int32)
+        tb = tb.merge(TopKState(corr[:, None], cand_i[:, None]))
+        vals, pos = _topk_rows(corr[:, None], k)    # consumes the row
+        pa[i] = vals[0]
+        ja[i] = torch.where(vals[0] > NEG, pos[0], -1)
+    return TopKState(pa, ja), tb
 
 
 # -- entry points -------------------------------------------------------------
@@ -589,7 +947,8 @@ def ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
             band: int = DEFAULT_BAND,
             reseed_every: int | None = DEFAULT_RESEED,
             normalize: bool = True, return_b: bool = False,
-            k: int = 1, precision=None, device=None) -> "ProfileResult":
+            k: int = 1, backend: str | None = None, precision=None,
+            device=None) -> "ProfileResult":
     """AB join: for every subsequence of A, its nearest neighbour in B.
 
     `result.p[i]` is the distance and `result.i[i]` the matching start in
@@ -598,7 +957,10 @@ def ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
     zone by default; with one, ab_join(ts, ts, m, exclusion=e) equals
     matrix_profile(ts, m, exclusion=e). The kernel sweeps the rectangle
     with its short side on rows (`swap_ab`); callers never see the
-    orientation.
+    orientation. `k > 1` adds exact top-k sets (`result.topk_p`, and
+    `result.b_topk_p` with `return_b`), swept by rowstream when the short
+    side has at most AB_ROWSTREAM_MAX_ROWS rows, else by the band engine.
+    `backend` forces a sweep ("kernel", "engine" or "rowstream").
     """
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.result import build_result
@@ -611,7 +973,104 @@ def ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
                                exclusion=exclusion, normalize=normalize,
                                harvest="both" if return_b else "merged",
                                band=band, reseed_every=reseed_every, k=k,
-                               precision=precision, device=device)
+                               backend=backend, precision=precision,
+                               device=device)
     stats = plan_mod.cross_stats_for(plan, a, b)
     res = plan_mod.execute(plan, stats)
     return build_result(plan, res, stats)
+
+
+def batch_profile(series, window: int, *, exclusion: int | None = None,
+                  band: int = DEFAULT_BAND,
+                  reseed_every: int | None = DEFAULT_RESEED,
+                  k: int = 1, harvest: str = "merged", precision=None,
+                  device=None) -> "ProfileResult":
+    """Self-join profiles of a (B, n) stack -> one `ProfileResult` whose
+    every field is stacked (B, l[, k]). The planner runs the band engine;
+    each series is swept as its unbatched plan would be (the reference
+    vmaps one program), so row r equals that plan on series r bit for
+    bit."""
+    import numpy as np
+
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.result import build_result
+    from repro_torch.core.validate import validate_series
+    from repro_torch.core.zstats import compute_stats_host, stack_stats
+
+    arr = np.asarray(series)
+    if arr.ndim != 2 or arr.shape[0] == 0:
+        raise ValueError(f"expected a non-empty (batch, n) stack, got "
+                         f"shape {arr.shape}")
+    m = int(window)
+    # rows share dtype and length, so validating one validates the stack
+    validate_series(arr[0], m, name="series[0]")
+    plan = plan_mod.plan_sweep(m, arr.shape[1] - m + 1, exclusion=exclusion,
+                               band=band, reseed_every=reseed_every,
+                               batch=arr.shape[0], k=k, harvest=harvest,
+                               precision=precision, device=device)
+    dt_kw = plan_mod.stats_dtypes_for(plan)
+    stack = stack_stats([compute_stats_host(s, m, device=plan.device,
+                                            **dt_kw) for s in arr])
+    res = plan_mod.execute(plan, stack)
+    return build_result(plan, res, stack)
+
+
+def batch_ab_join(stack_a, stack_b, window: int, *,
+                  exclusion: int | None = None, band: int = DEFAULT_BAND,
+                  reseed_every: int | None = DEFAULT_RESEED,
+                  return_b: bool = False, k: int = 1,
+                  backend: str | None = None, precision=None,
+                  device=None) -> "ProfileResult":
+    """AB joins of row r of (B, n_a) against row r of (B, n_b) -> a stacked
+    `ProfileResult` (with `return_b`, the (B, l_b) B sides ride along).
+    The planner runs the band engine unless `backend="rowstream"`; each
+    pair is swept as its unbatched plan would be."""
+    import numpy as np
+
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.result import build_result
+    from repro_torch.core.validate import validate_series
+    from repro_torch.core.zstats import stack_stats
+
+    a, b = np.asarray(stack_a), np.asarray(stack_b)
+    if (a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]
+            or a.shape[0] == 0):
+        raise ValueError(f"expected matching non-empty (batch, n) stacks, "
+                         f"got {a.shape} vs {b.shape}")
+    m = int(window)
+    validate_series(a[0], m, name="stack_a[0]")
+    validate_series(b[0], m, name="stack_b[0]")
+    plan = plan_mod.plan_sweep(m, a.shape[1] - m + 1, b.shape[1] - m + 1,
+                               exclusion=exclusion, band=band,
+                               reseed_every=reseed_every,
+                               harvest="both" if return_b else "merged",
+                               batch=a.shape[0], k=k, backend=backend,
+                               precision=precision, device=device)
+    stack = stack_stats([plan_mod.cross_stats_for(plan, ra, rb)
+                         for ra, rb in zip(a, b)])
+    res = plan_mod.execute(plan, stack)
+    return build_result(plan, res, stack)
+
+
+def top_discords(profile: torch.Tensor, index: torch.Tensor, k: int,
+                 exclusion: int) -> torch.Tensor:
+    """Indices of the k largest profile entries, greedily non-overlapping
+    (each pick masks `exclusion` positions on either side)."""
+    del index
+    p = torch.where(torch.isfinite(profile), profile, -torch.inf)
+    pos = torch.arange(p.shape[0], device=p.device)
+    picks = []
+    for _ in range(k):
+        i = torch.argmax(p)                  # the first largest
+        picks.append(i)
+        lo = torch.clamp(i - exclusion, min=0)
+        p = torch.where((pos >= lo) & (pos < lo + 2 * exclusion + 1),
+                        -torch.inf, p)
+    return torch.stack(picks)
+
+
+def top_motif(profile: torch.Tensor, index: torch.Tensor):
+    """(i, j) of the best-matching pair: the profile's global minimum (the
+    first one) and its neighbour."""
+    i = torch.argmin(profile)
+    return i, index[i]

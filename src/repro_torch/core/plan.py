@@ -37,7 +37,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.matrix_profile import (
-    DEFAULT_BAND, DEFAULT_RESEED, default_exclusion, profile_distance,
+    AB_ROWSTREAM_MAX_ROWS, DEFAULT_BAND, DEFAULT_RESEED, default_exclusion,
+    profile_distance,
 )
 from repro_torch.core.precision import (
     DEFAULT_PRECISION, PrecisionSpec, as_precision,
@@ -51,9 +52,7 @@ BACKENDS = ("engine", "rowstream", "kernel", "distributed")
 
 # what is not ported yet -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "rowstream": "the rowstream AB sweep (ROADMAP.md §A2)",
     "distributed": "distributed rounds (ROADMAP.md §A6)",
-    "topk": "exact top-k harvests, k > 1 (ROADMAP.md §A2)",
     "nonnorm": "non-normalized sweeps, normalize=False (ROADMAP.md §A2)",
     "batch": "batched plans (ROADMAP.md §A2)",
     "tile": ("the reduced-precision self-join tile sweep that 16-bit streams "
@@ -168,17 +167,29 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
     """Planner: fill in every sweep decision. `l_a`/`l_b` are SUBSEQUENCE
     counts (n - window + 1). `device=None` is the CUDA card and raises on a
     host without one. Rules pinned here:
-      * `backend=None` -> "engine" where the call asks for a non-default
-        `band`, `clamp_rows=False`, a `reseed_every` other than its default
-        or None, or `accum="float64"`; else "kernel";
+      * `backend=None` for an unbatched k = 1 z-normalized plan -> "engine"
+        where the call asks for a non-default `band`, `clamp_rows=False`, a
+        `reseed_every` other than its default or None, or
+        `accum="float64"`; else "kernel";
+      * `backend=None` for any other plan (k > 1, `batch`, nonnorm) ->
+        resolved as the reference resolves it: "rowstream" for an
+        unbatched, row-clamped z-normalized AB join whose short side has at
+        most AB_ROWSTREAM_MAX_ROWS rows (and at least k), else "engine";
+      * k > 1 on `backend="kernel"` plans the engine instead, with
+        `col_tile` dropped (the kernel's accumulators are k = 1); top-k
+        needs exclusion >= 1 on a self-join, k <= band, k <= min(l_a, l_b)
+        on rowstream, flat accumulation, row clamping and f32 or wider
+        streams;
+      * batched plans run the engine or the AB rowstream;
       * the kernel accumulates in f32 (`accum="float64"` raises
         `ValueError`) and reads f32/bf16/f16 streams: f64 streams are
         rounded to f32 once before the launch, as the reference's kernel
         rounds them on load;
-      * the kernel takes none of the engine's band options
-        (`NotImplementedError`), and the engine's 16-bit self-join tile
-        sweep, `k > 1`, `normalize=False`, `batch` and the other backends
-        are not ported (`NotImplementedError`).
+      * every `ValueError` of the reference's planner is raised here too,
+        before the port's own refusals (`NotImplementedError`): the
+        kernel takes none of the engine's band options, and the 16-bit
+        self-join tile sweep, `normalize=False` and `distributed` are not
+        ported.
     """
     m = int(window)
     prec = as_precision(precision)
@@ -192,37 +203,87 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
                                                                k=int(k))
     else:
         spec = HarvestSpec(sides=harvest, k=int(k))
+    topk = spec.k > 1
+
+    if topk and not normalize:
+        raise ValueError("top-k (k > 1) harvests are z-normalized only: the "
+                         "nonnorm engines carry no top-k accumulator")
+    if topk and backend == "kernel":
+        # the CUDA kernel's accumulators are k = 1: the band engine answers
+        # the same plan from one sweep; col_tile was the kernel's knob
+        backend = "engine"
+        col_tile = None
+    if topk and kind == "self" and excl == 0:
+        raise ValueError(
+            "self-join top-k needs exclusion >= 1: with exclusion=0 every "
+            "cell (i, i) is harvested by both the row and column sides, so "
+            "the union would hold the self-match twice")
+    if topk and spec.k > int(band):
+        raise ValueError(f"k={spec.k} exceeds band={band}: the band engines "
+                         "reduce top-k over the band axis; raise band or "
+                         "lower k")
 
     band_options = (band != DEFAULT_BAND or clamp_rows is not True
                     or reseed_every not in (DEFAULT_RESEED, None))
     if backend is None:
-        backend = ("engine" if band_options or prec.accum != "float32"
-                   else "kernel")
+        if not topk and batch is None and normalize:
+            backend = ("engine" if band_options or prec.accum != "float32"
+                       else "kernel")
+        elif (kind == "ab" and normalize and batch is None and clamp_rows
+              and min(l_a, l_b) <= AB_ROWSTREAM_MAX_ROWS
+              and spec.k <= min(l_a, l_b)):
+            backend = "rowstream"
+        else:
+            backend = "engine"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if backend in ("rowstream", "distributed"):
-        raise _not_ported(backend)
-    if spec.k > 1:
-        raise _not_ported("topk")
+    if backend in ("rowstream", "kernel") and not normalize:
+        raise ValueError(f"backend {backend!r} is z-normalized only")
+    if backend == "rowstream" and kind != "ab":
+        raise ValueError("rowstream sweeps the AB rectangle; self-joins use "
+                         "the band engine (or the kernel)")
+    if backend == "rowstream" and spec.k > min(l_a, l_b):
+        raise ValueError(f"rowstream top-k needs k <= min(l_a, l_b) = "
+                         f"{min(l_a, l_b)}, got k={spec.k}")
+    if batch is not None and backend not in ("engine", "rowstream"):
+        raise ValueError("batched plans run the band engine or the AB "
+                         f"rowstream; backend {backend!r} cannot batch")
+    if batch is not None and not normalize:
+        raise ValueError("batched plans are z-normalized only")
+    if topk and col_tile is not None:
+        raise ValueError("the banked column accumulator (col_tile) is "
+                         "k=1-only; top-k plans accumulate flat")
+    if topk and not clamp_rows:
+        raise ValueError("clamp_rows=False is the k=1 A/B-comparison sweep; "
+                         "top-k plans always row-clamp")
+    if prec.reduced_stream and not normalize:
+        raise ValueError("16-bit streams are z-normalized only")
+    if not normalize and kind == "ab" and not prec.is_default:
+        raise ValueError("nonnorm AB joins run the fixed f32 pipeline")
+    if prec.reduced_stream and topk:
+        raise ValueError("top-k harvests with 16-bit streams are not "
+                         "supported: use f32 streams")
+    if backend in ("kernel", "distributed") and prec.accum != "float32":
+        raise ValueError(f"backend {backend!r} accumulates in f32; "
+                         f"accum={prec.accum!r} is engine/rowstream-only")
+
+    if backend == "distributed":
+        raise _not_ported("distributed")
     if not normalize:
         raise _not_ported("nonnorm")
-    if batch is not None:
-        raise _not_ported("batch")
-    if backend == "kernel":
-        if band_options:
-            raise NotImplementedError(
-                "the band engine's band, clamp_rows and reseed_every options "
-                "are not the CUDA kernel's: it never reseeds its f32 "
-                "covariance carry; plan backend='engine' (or leave "
-                "backend=None) for them")
-        if prec.accum != "float32":
-            raise ValueError(f"backend 'kernel' accumulates in f32; "
-                             f"accum={prec.accum!r} is engine-only")
-    elif kind == "self" and prec.reduced_stream:
+    if backend == "kernel" and band_options:
+        raise NotImplementedError(
+            "the band engine's band, clamp_rows and reseed_every options "
+            "are not the CUDA kernel's: it never reseeds its f32 "
+            "covariance carry; plan backend='engine' (or leave "
+            "backend=None) for them")
+    if backend == "engine" and kind == "self" and prec.reduced_stream:
         raise _not_ported("tile")
     dev = resolve_device(device)
 
-    swap_ab = kind == "ab" and backend == "kernel" and l_b < l_a
+    # short side onto rows for the backends whose row axis is streamed
+    swap_ab = (kind == "ab" and backend in ("rowstream", "kernel")
+               and l_b < l_a)
     if backend == "kernel" and kind == "self":
         col_tile = _kernel_self_col_tile(l_a, excl, it, dt, col_tile)
 
@@ -275,11 +336,45 @@ def _check_stats(plan: SweepPlan, stats) -> None:
 
 def execute(plan: SweepPlan, stats) -> SweepResult:
     """Run a plan on its payload: `ZStats` (self) or `CrossStats` in the
-    plan's SWEPT orientation (AB; see `cross_stats_for`)."""
+    plan's SWEPT orientation (AB; see `cross_stats_for`). A batched plan
+    takes the same payload stacked (`zstats.stack_stats`) and sweeps each
+    series as the unbatched plan would, so every stacked field equals the
+    sequential calls bit for bit."""
+    if plan.batch is not None:
+        return _execute_batched(plan, stats)
     _check_stats(plan, stats)
     if plan.kind == "self":
         return _execute_self(plan, stats)
     return _execute_ab(plan, stats)
+
+
+_RESULT_FIELDS = tuple(f.name for f in dataclasses.fields(SweepResult)
+                       if f.name != "raw")
+
+
+def _execute_batched(plan: SweepPlan, stack) -> SweepResult:
+    from repro_torch.core.zstats import unstack_stats
+
+    one = dataclasses.replace(plan, batch=None)
+    parts = unstack_stats(stack)
+    if len(parts) != plan.batch:
+        raise ValueError(f"plan batches {plan.batch} series, the payload "
+                         f"stacks {len(parts)}")
+    outs = [execute(one, p) for p in parts]
+    res = SweepResult(**{
+        f: torch.stack([getattr(o, f) for o in outs])
+        for f in _RESULT_FIELDS if getattr(outs[0], f) is not None})
+    if outs[0].raw:
+        def stacked(fns):
+            def fin():
+                done = [fn() for fn in fns]
+                return {key: torch.stack([d[key] for d in done])
+                        for key in done[0]}
+            return fin
+
+        res.raw = {g: stacked([o.raw[g] for o in outs])
+                   for g in outs[0].raw}
+    return res
 
 
 # public lazy-field name -> SweepResult field, for eager materialization
@@ -308,6 +403,25 @@ def _attach(res: SweepResult, groups: tuple[str, ...], fin, eager: bool):
 def _execute_self(plan: SweepPlan, stats: ZStats) -> SweepResult:
     m = plan.window
     eager_split = plan.harvest.sides == "both"
+    if plan.harvest.k > 1:
+        from repro_torch.core.matrix_profile import profile_topk_from_stats
+
+        merged, rows, col = profile_topk_from_stats(
+            stats, plan.exclusion, plan.band, plan.reseed_every,
+            plan.harvest.k, accum_dtype=plan.precision.accum)
+        # the merged profile IS slot 0 of the top-k conversion, so the
+        # top-k fields come at no extra cost; the split stays deferred
+        dk = merged.to_distance(m)
+        res = SweepResult(dk[..., 0], merged.index[..., 0], topk_dist=dk,
+                          topk_index=merged.index)
+
+        def fin_topk_split():
+            return dict(left_p=col.to_distance(m)[..., 0],
+                        left_i=col.index[..., 0],
+                        right_p=rows.to_distance(m)[..., 0],
+                        right_i=rows.index[..., 0])
+
+        return _attach(res, ("split",), fin_topk_split, eager_split)
     if plan.backend == "engine":
         from repro_torch.core.matrix_profile import profile_from_stats
 
@@ -342,6 +456,22 @@ def _execute_self(plan: SweepPlan, stats: ZStats) -> SweepResult:
 def _execute_ab(plan: SweepPlan, stats: CrossStats) -> SweepResult:
     m = plan.window
     two_sided = plan.harvest.sides == "both"
+    if plan.harvest.k > 1:
+        return _execute_ab_topk(plan, stats, two_sided)
+    if plan.backend == "rowstream":
+        from repro_torch.core.matrix_profile import ab_join_rowstream
+
+        sa, sb = ab_join_rowstream(stats, plan.exclusion, plan.reseed_every,
+                                   accum_dtype=plan.precision.accum)
+        if plan.swap_ab:
+            sa, sb = sb, sa
+        res = SweepResult(sa.to_distance(m), sa.index)
+
+        def fin_b_rowstream():
+            # B's state IS rowstream's running accumulator
+            return dict(b_p=sb.to_distance(m), b_i=sb.index)
+
+        return _attach(res, ("b",), fin_b_rowstream, two_sided)
     if plan.backend == "engine":
         from repro_torch.core.matrix_profile import ab_join_from_stats
 
@@ -368,3 +498,38 @@ def _execute_ab(plan: SweepPlan, stats: CrossStats) -> SweepResult:
         return dict(b_p=profile_distance(corr_b, m), b_i=idx_b)
 
     return _attach(res, ("b",), fin_b, two_sided)
+
+
+def _execute_ab_topk(plan: SweepPlan, stats: CrossStats,
+                     two_sided: bool) -> SweepResult:
+    """k > 1 AB plans: rowstream's per-row top-k with B's union, or the
+    band engine's `(l, k)` accumulators — one sweep either way. Rowstream
+    always carries both sides, so a minimal plan defers B, not drops it."""
+    from repro_torch.core.matrix_profile import (
+        ab_join_rowstream_topk, ab_join_topk_from_stats,
+    )
+
+    m = plan.window
+    k = plan.harvest.k
+    if plan.backend == "rowstream":
+        ta, tb = ab_join_rowstream_topk(stats, plan.exclusion,
+                                           plan.reseed_every, k,
+                                           accum_dtype=plan.precision.accum)
+        if plan.swap_ab:
+            ta, tb = tb, ta
+    else:
+        ta, tb = ab_join_topk_from_stats(stats, plan.exclusion, plan.band,
+                                         plan.reseed_every, two_sided, k,
+                                         accum_dtype=plan.precision.accum)
+    da = ta.to_distance(m)
+    res = SweepResult(da[..., 0], ta.index[..., 0], topk_dist=da,
+                      topk_index=ta.index)
+    if tb is None:
+        return res
+
+    def fin_b_topk():
+        db = tb.to_distance(m)        # one conversion serves both groups
+        return dict(b_p=db[..., 0], b_i=tb.index[..., 0], b_topk_p=db,
+                    b_topk_i=tb.index)
+
+    return _attach(res, ("b", "b_topk"), fin_b_topk, two_sided)

@@ -176,11 +176,8 @@ def test_recompute_path_matches_eager():
 @pytest.mark.parametrize("kw,match", [
     # 16-bit self-join streams on the engine take the tile sweep (§A2)
     (dict(backend="engine", precision="bf16"), "band engine"),
-    (dict(backend="rowstream"), "rowstream"),
     (dict(backend="distributed"), "distributed"),
-    (dict(k=2), "top-k"),
     (dict(normalize=False), "normalize=False"),
-    (dict(batch=4), "batched"),
     # the kernel never reseeds: the engine's options refuse the kernel
     (dict(band=128, backend="kernel"), "band engine's band"),
     (dict(clamp_rows=False, backend="kernel"), "clamp_rows"),
@@ -191,16 +188,46 @@ def test_not_ported_raises(kw, match):
         tplan.plan_sweep(16, 300, device="cpu", **kw)
 
 
+@pytest.mark.parametrize("l_b,kw,backend", [
+    # ported in slice 5: once refused here, now planned and executed
+    (185, dict(backend="rowstream"), "rowstream"),
+    (None, dict(k=2), "engine"),
+    (None, dict(batch=4), "engine"),
+])
+def test_newly_ported_plans_execute(l_b, kw, backend):
+    """The rowstream AB sweep, top-k and batched plans resolve their
+    backend and execute on the CPU (a rowstream plan needs an AB join:
+    self-joins have no rows to stream)."""
+    from repro_torch.core.zstats import compute_stats_host, stack_stats
+
+    ts = _walk(300, seed=40)
+    plan = tplan.plan_sweep(16, 285, l_b, device="cpu", **kw)
+    assert plan.backend == backend
+    if l_b is not None:
+        assert plan.swap_ab                  # the short side on rows
+        stats = tplan.cross_stats_for(plan, ts, ts[:200])
+    elif plan.batch:
+        stats = stack_stats([compute_stats_host(ts + r, 16, device="cpu")
+                             for r in range(plan.batch)])
+    else:
+        stats = compute_stats_host(ts, 16, device="cpu")
+    res = tplan.execute(plan, stats)
+    lead = (plan.batch,) if plan.batch else ()
+    assert res.dist.shape == lead + (285,)
+    assert bool(torch.isfinite(res.dist).all())
+    if plan.harvest.k > 1:
+        assert res.topk_dist.shape == (285, plan.harvest.k)
+
+
 def test_entry_points_raise_for_unported_options():
     ts = _walk(300, seed=6)
-    with pytest.raises(NotImplementedError):
-        matrix_profile(ts, 16, k=3, device="cpu")
+    assert matrix_profile(ts, 16, k=3, device="cpu").topk_p.shape == (285, 3)
     with pytest.raises(NotImplementedError):
         matrix_profile(ts, 16, normalize=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ab_join(ts, ts[:200], 16, k=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tops.natsa_matrix_profile(ts, 16, k=2, device="cpu")
+    assert ab_join(ts, ts[:200], 16, k=2,
+                   device="cpu").topk_p.shape == (285, 2)
+    assert tops.natsa_matrix_profile(ts, 16, k=2,
+                                     device="cpu").backend == "engine"
     with pytest.raises(NotImplementedError, match="tile sweep"):
         matrix_profile(ts, 16, band=64, precision="bf16", device="cpu")
     # the kernel never reseeds: a reseed period or band it would ignore
