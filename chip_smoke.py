@@ -43,9 +43,23 @@ Phases, each printing one JSON line:
   8. the band engine (`plan_sweep(backend="engine")`) against the kernel
      path on the card, self-join n=65536 m=512 and AB 32768x8192 m=128,
      under the full-size near-tie rule at 1e-3;
-  9. `{"kernels": [...]}`: each ported kernel with its launches on the main
-     paths, its error against the plain version and its times beside its
-     bound.
+  9. `main_topk`: `matrix_profile(ts, 512, k=4)` at ecg-256k with a
+     planted motif pair, on the band engine by the planner's fallback (no
+     NATSA launch): slot 0 against the k = 1 kernel path under the
+     full-size rule, all four slots of 64 sampled rows against their f64
+     exact top-4, the pair in slot 0 both ways;
+ 10. `main_rowstream`: `ab_join(q, b, 128, backend="rowstream",
+     return_b=True)`, 4096 query subsequences against epilepsy-128k's
+     131072 samples, at k = 1 (against the NATSA kernel path under the
+     full-size rule) and k = 4 (slot 0 bit for bit the k = 1 result; 64
+     sampled rows of each side against their f64 exact top-4);
+ 11. `main_batch`: `batch_profile` of 4 series at bench-16k, and
+     `batch_ab_join` of 8 queries (l = 4096) against 8 series of 32768 on
+     rowstream and with k = 4 on the engine, each stacked result bit for
+     bit the per-series sequential calls;
+ 12. `{"kernels": [...]}`: each ported kernel with its launches on every
+     path (0 on the three above), its error against the plain version and
+     its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -95,6 +109,12 @@ FAULT_ROW0 = 4096      # the planted fault's first row
 FAULT_LATE_ROW0 = 16384  # its late rows, read on their own
 ENGINE_SELF_N, ENGINE_SELF_M = 65536, 512
 ENGINE_AB_NA, ENGINE_AB_NB, ENGINE_AB_M = 32768, 8192, 128
+TOPK_K = 4
+TOPK_N, TOPK_M = 262144, 512            # ecg-256k (configs/natsa.py:17)
+ROWSTREAM_LQ = 4096                     # the reference's rowstream ceiling
+ROWSTREAM_NB, ROWSTREAM_M = 131072, 128  # epilepsy-128k (configs/natsa.py:16)
+BATCH_SELF_B, BATCH_SELF_N, BATCH_M = 4, 16384, 128  # bench-16k (natsa.py:23)
+BATCH_AB_B, BATCH_AB_LQ, BATCH_AB_NB = 8, 4096, 32768
 
 
 def emit(obj) -> None:
@@ -931,6 +951,284 @@ def phase_engine() -> list[dict]:
     return outs
 
 
+def _topk_vs_oracle(tk_p, tk_i, ts_rows, ts_cols, m, rows,
+                    exclusion) -> dict:
+    """All k slots of the sampled `rows` against their f64 exact top-k on
+    the card: each slot's correlation within TOL_ORACLE of the oracle's
+    slot, and each pick's own exact correlation within TOL_ORACLE of the
+    oracle's slot (an index differs only at a near-tie)."""
+    import torch
+
+    from repro_torch.core import ref
+    from repro_torch.core.zstats import dist_to_corr
+
+    dev = torch.device(DEVICE)
+    k = tk_p.shape[1]
+    d_ref, i_ref = ref.profile_rows_topk(torch.from_numpy(ts_rows).to(dev),
+                                         torch.from_numpy(ts_cols).to(dev),
+                                         m, rows, k, exclusion=exclusion)
+    at = torch.as_tensor(rows, device=dev)
+    got_p, got_i = tk_p[at].double(), tk_i[at]
+    check(bool(torch.isfinite(got_p).all() and (got_i >= 0).all()),
+          "sampled top-k rows have unfilled slots")
+    c_ref = dist_to_corr(d_ref, m)
+    err = float((dist_to_corr(got_p, m) - c_ref).abs().max())
+    r = at[:, None].expand(-1, k).reshape(-1)
+    own = _exact_corr(ts_rows, ts_cols, m, r, got_i.reshape(-1)).reshape(
+        -1, k)
+    picks = int(((own - c_ref).abs() >= TOL_ORACLE).sum())
+    distinct = all(len(set(row.tolist())) == k for row in got_i.cpu())
+    return {"rows": len(rows), "k": k, "max_corr_err": err,
+            "pick_violations": picks, "index_mismatch":
+            int((got_i != i_ref).sum()), "distinct": distinct}
+
+
+def _sides(res, kind: str, m: int):
+    """A ProfileResult in `compare`'s layout, correlations as
+    `_plan_corr`: (right, left) of a self-join, (A, B) of an AB join."""
+    import torch
+
+    from repro_torch.core.zstats import dist_to_corr
+
+    def c(dist):
+        return torch.where(torch.isfinite(dist),
+                           dist_to_corr(dist.double(), m), -2.0).float()
+
+    if kind == "self":
+        return c(res.right_p), res.right_i, c(res.left_p), res.left_i
+    return c(res.p), res.i, c(res.b_p), res.b_i
+
+
+def _timed(fn):
+    """(fn(), host seconds to the card's end of it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_topk() -> dict:
+    """`matrix_profile(ts, 512, k=4)` at ecg-256k with a planted motif
+    pair: the band engine's top-k by the planner's fallback, no NATSA
+    launch. Slot 0 against the k = 1 kernel path under the full-size rule,
+    all four slots of 64 sampled rows against their f64 exact top-4."""
+    import torch
+
+    from repro_torch.core import matrix_profile
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.matrix_profile import default_exclusion
+
+    rng = np.random.default_rng(SEED + 8)
+    n, m, k = TOPK_N, TOPK_M, TOPK_K
+    pa, pb = n // 5, (3 * n) // 5 + 17
+    ts = plant(walk(rng, n), pa, pb, m)
+    excl = default_exclusion(m)
+    l = n - m + 1
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res, e2e = _timed(lambda: matrix_profile(ts, m, k=k, device=DEVICE))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+          f"top-k path launched a kernel: {counts}")
+    check(res.backend == "engine", f"top-k backend {res.backend}")
+    tk_p, tk_i = res.topk_p, res.topk_i
+    check(tk_p.shape == (l, k) and tk_i.dtype == torch.int32
+          and tk_p.device.type == DEVICE, "top-k result shape")
+    check(bool(torch.isfinite(tk_p[:, 0]).all()), "top-k slot 0 non-finite")
+    check(int(tk_i[pa, 0]) == pb and int(tk_i[pb, 0]) == pa,
+          f"top-k motif pair ({pa},{pb}) -> ({int(tk_i[pa, 0])},"
+          f"{int(tk_i[pb, 0])})")
+    rows = np.sort(np.random.default_rng(SEED + 10).choice(
+        l, SAMPLED_ROWS, replace=False))
+    oracle = _topk_vs_oracle(tk_p, tk_i, ts, ts, m, rows, excl)
+    check(oracle["max_corr_err"] <= TOL_ORACLE
+          and oracle["pick_violations"] == 0 and oracle["distinct"],
+          f"top-k vs f64 exact top-{k}: {oracle}")
+
+    # the engine alone, on the same plan and streams
+    lazy = object.__getattribute__(res, "_lazy")
+    _, engine_s = _timed(lambda: plan_mod.execute(lazy.plan, lazy.stats))
+    # slot 0 (its right/left split) against the k = 1 kernel path
+    k1 = matrix_profile(ts, m, harvest="both", device=DEVICE)
+    check(k1.backend == "kernel", "the k = 1 path left the kernel")
+    vs_k1 = compare_full_size(_sides(k1, "self", m), _sides(res, "self", m),
+                              ts, ts, m, 0)
+    check(vs_k1["max_abs_err"] <= TOL_ORACLE and vs_k1["tie_violations"] == 0
+          and vs_k1["exact_pair_violations"] == 0,
+          f"top-k slot 0 vs the k = 1 kernel path {vs_k1}")
+    out = {"phase": "main_topk", "n": n, "m": m, "k": k, "exclusion": excl,
+           "backend": res.backend, "counts": counts, "e2e_s": e2e,
+           "engine_ms": 1e3 * engine_s, "peak_device_bytes": peak,
+           "motif": [pa, pb], "slot0_vs_k1_kernel": vs_k1,
+           "oracle": oracle}
+    emit(out)
+    return out
+
+
+def phase_rowstream() -> dict:
+    """`ab_join(q, b, 128, backend="rowstream", return_b=True)`, l_q = 4096
+    against epilepsy-128k's 131072 samples, at k = 1 and k = 4: k = 1
+    against the NATSA kernel path under the full-size rule, k = 4's slot 0
+    bit for bit against k = 1, 64 sampled rows of each side against their
+    f64 exact top-4."""
+    import torch
+
+    from repro_torch.core import ab_join
+
+    rng = np.random.default_rng(SEED + 11)
+    m = ROWSTREAM_M
+    q = walk(rng, ROWSTREAM_LQ + m - 1)
+    b = walk(rng, ROWSTREAM_NB)
+    pq, pb = ROWSTREAM_LQ // 3, (2 * ROWSTREAM_NB) // 3
+    b = plant(b, pq, pb, m, other=q)
+    lq, lb = ROWSTREAM_LQ, ROWSTREAM_NB - m + 1
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    r1, s1 = _timed(lambda: ab_join(q, b, m, backend="rowstream",
+                                    return_b=True, device=DEVICE))
+    r4, s4 = _timed(lambda: ab_join(q, b, m, backend="rowstream",
+                                    return_b=True, k=TOPK_K, device=DEVICE))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+          f"rowstream path launched a kernel: {counts}")
+    check(r1.backend == r4.backend == "rowstream", "rowstream backend")
+    check(r1.p.shape == (lq,) and r1.b_p.shape == (lb,)
+          and r4.topk_p.shape == (lq, TOPK_K)
+          and r4.b_topk_p.shape == (lb, TOPK_K), "rowstream shapes")
+    check(bool(torch.isfinite(r1.p).all() and torch.isfinite(r1.b_p).all()),
+          "rowstream profile non-finite")
+    check(int(r1.i[pq]) == pb and int(r1.b_i[pb]) == pq,
+          f"rowstream pair ({pq},{pb}) -> ({int(r1.i[pq])},"
+          f"{int(r1.b_i[pb])})")
+    slot0 = {"a": bool(torch.equal(r4.topk_p[:, 0], r1.p)),
+             "b": bool(torch.equal(r4.b_topk_p[:, 0], r1.b_p))}
+    check(all(slot0.values()), f"k=4 slot 0 != k=1 rowstream: {slot0}")
+
+    reset_counts()
+    kern = ab_join(q, b, m, return_b=True, device=DEVICE)
+    torch.cuda.synchronize()
+    check(kern.backend == "kernel" and read_counts()["natsa_mp"] > 0,
+          "the comparison path left the NATSA kernel")
+    vs_kernel = compare_full_size(_sides(kern, "ab", m), _sides(r1, "ab", m),
+                                  q, b, m, 0)
+    check(vs_kernel["max_abs_err"] <= TOL_ORACLE
+          and vs_kernel["tie_violations"] == 0
+          and vs_kernel["exact_pair_violations"] == 0,
+          f"rowstream vs the NATSA kernel path {vs_kernel}")
+    srng = np.random.default_rng(SEED + 12)
+    oracle_a = _topk_vs_oracle(r4.topk_p, r4.topk_i, q, b, m, np.sort(
+        srng.choice(lq, SAMPLED_ROWS, replace=False)), 0)
+    oracle_b = _topk_vs_oracle(r4.b_topk_p, r4.b_topk_i, b, q, m, np.sort(
+        srng.choice(lb, SAMPLED_ROWS, replace=False)), 0)
+    for o in (oracle_a, oracle_b):
+        check(o["max_corr_err"] <= TOL_ORACLE and o["pick_violations"] == 0
+              and o["distinct"], f"rowstream vs f64 exact top-4: {o}")
+    out = {"phase": "main_rowstream", "l_q": lq, "n_b": ROWSTREAM_NB,
+           "m": m, "counts": counts, "ms": 1e3 * s1,
+           "ms_k4": 1e3 * s4, "peak_device_bytes": peak,
+           "slot0_bitwise": slot0, "k1_vs_kernel": vs_kernel,
+           "oracle_a": oracle_a, "oracle_b": oracle_b}
+    emit(out)
+    return out
+
+
+def _equal_fields(batched, seq, fields) -> dict:
+    """Each stacked field against the per-series results, bit for bit."""
+    import torch
+
+    out = {}
+    for f in fields:
+        want = torch.stack([getattr(r, f) for r in seq])
+        out[f] = bool(torch.equal(getattr(batched, f), want))
+    return out
+
+
+def phase_batch() -> dict:
+    """Batched plans equal the per-series sequential calls bit for bit, on
+    the card: `batch_profile` of 4 series at bench-16k; `batch_ab_join` of
+    8 queries (l = 4096) against 8 series of 32768 on rowstream, and with
+    k = 4 on the batched default (the engine)."""
+    import torch
+
+    from repro_torch.core import ab_join, batch_ab_join, batch_profile
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.result import build_result
+    from repro_torch.core.zstats import compute_stats_host
+
+    rng = np.random.default_rng(SEED + 13)
+    m = BATCH_M
+    selfs = np.stack([walk(rng, BATCH_SELF_N) for _ in range(BATCH_SELF_B)])
+    qs = np.stack([walk(rng, BATCH_AB_LQ + m - 1) for _ in range(BATCH_AB_B)])
+    bs = np.stack([walk(rng, BATCH_AB_NB) for _ in range(BATCH_AB_B)])
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rp, sp = _timed(lambda: batch_profile(selfs, m, harvest="both",
+                                          device=DEVICE))
+    rr, sr = _timed(lambda: batch_ab_join(qs, bs, m, return_b=True,
+                                          backend="rowstream",
+                                          device=DEVICE))
+    rk, sk = _timed(lambda: batch_ab_join(qs, bs, m, return_b=True,
+                                          k=TOPK_K, device=DEVICE))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+          f"batched paths launched a kernel: {counts}")
+    check((rp.backend, rr.backend, rk.backend)
+          == ("engine", "rowstream", "engine"),
+          f"batched backends {rp.backend} {rr.backend} {rk.backend}")
+    check(rp.p.shape == (BATCH_SELF_B, BATCH_SELF_N - m + 1)
+          and rr.b_p.shape == (BATCH_AB_B, BATCH_AB_NB - m + 1)
+          and rk.topk_p.shape == (BATCH_AB_B, BATCH_AB_LQ, TOPK_K),
+          "batched shapes")
+
+    def seq_self():
+        plan = plan_mod.plan_sweep(m, BATCH_SELF_N - m + 1, backend="engine",
+                                   harvest="both", device=DEVICE)
+        return [build_result(plan, plan_mod.execute(
+            plan, compute_stats_host(s, m, device=DEVICE))) for s in selfs]
+
+    def seq_ab(k, backend):
+        if backend == "rowstream":
+            return [ab_join(a, b, m, return_b=True, backend=backend,
+                            device=DEVICE) for a, b in zip(qs, bs)]
+        plan = plan_mod.plan_sweep(m, BATCH_AB_LQ, BATCH_AB_NB - m + 1, k=k,
+                                   backend=backend, harvest="both",
+                                   device=DEVICE)
+        return [build_result(plan, plan_mod.execute(
+            plan, plan_mod.cross_stats_for(plan, a, b)))
+            for a, b in zip(qs, bs)]
+
+    eq = {"batch_profile": _equal_fields(rp, seq_self(), (
+              "p", "i", "left_p", "left_i", "right_p", "right_i")),
+          "batch_ab_join_rowstream": _equal_fields(rr, seq_ab(1, "rowstream"),
+                                                   ("p", "i", "b_p", "b_i")),
+          "batch_ab_join_k4": _equal_fields(rk, seq_ab(TOPK_K, "engine"), (
+              "p", "i", "topk_p", "topk_i", "b_p", "b_i", "b_topk_p",
+              "b_topk_i"))}
+    check(all(v for d in eq.values() for v in d.values()),
+          f"batched != sequential: {eq}")
+    for res in (rp, rr, rk):
+        check(bool(torch.isfinite(res.p).all()), "batched profile non-finite")
+    out = {"phase": "main_batch", "counts": counts,
+           "batch_profile": {"B": BATCH_SELF_B, "n": BATCH_SELF_N, "m": m,
+                             "ms": 1e3 * sp},
+           "batch_ab_join_rowstream": {"B": BATCH_AB_B, "l_q": BATCH_AB_LQ,
+                                       "n_b": BATCH_AB_NB, "ms": 1e3 * sr},
+           "batch_ab_join_k4": {"B": BATCH_AB_B, "k": TOPK_K,
+                                "backend": rk.backend, "ms": 1e3 * sk},
+           "peak_device_bytes": peak, "bitwise_equal_sequential": eq}
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -945,13 +1243,20 @@ def main() -> None:
     flash_err, flash_bf16_err, flash_bf16_ratio = phase_flash_cases()
     fl = phase_flash()
     phase_engine()
+    tk = phase_topk()
+    rs = phase_rowstream()
+    bt = phase_batch()
+    new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
+                 "batch": bt}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": s["launches"] + ab["launches"],
         "launches_by_path": {"matrix_profile": s["launches"],
                              "ab_join": ab["launches"],
-                             "flash_attention": fl["counts"]["natsa_mp"]},
+                             "flash_attention": fl["counts"]["natsa_mp"],
+                             **{p: o["counts"]["natsa_mp"]
+                                for p, o in new_paths.items()}},
         "max_abs_err": small_err,
         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
         "bound_by": s["bound_by"], "library_ms": None,
@@ -965,7 +1270,9 @@ def main() -> None:
         "launches": fl["launches"],
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
                              "ab_join": ab["counts"]["flash_attn"],
-                             "flash_attention": fl["launches"]},
+                             "flash_attention": fl["launches"],
+                             **{p: o["counts"]["flash_attn"]
+                                for p, o in new_paths.items()}},
         "max_abs_err": flash_err,
         "bf16_max_abs_err": flash_bf16_err,
         "bf16_max_element_ratio": flash_bf16_ratio,

@@ -89,3 +89,23 @@ def profile_rows(ts_a, ts_b, window: int, rows, exclusion: int = 0):
         d = torch.where((rows[:, None] - j[None, :]).abs() < int(exclusion),
                         torch.inf, d)
     return d.min(dim=1).values, d.argmin(dim=1)
+
+
+def profile_rows_topk(ts_a, ts_b, window: int, rows, k: int,
+                      exclusion: int = 0):
+    """`profile_rows` widened to the exact top-k: ((len(rows), k) distances
+    best-first, indices) of the chosen rows of A against every subsequence
+    of B, banned pairs excluded (an exhausted row pads with inf). Among
+    equal distances the order is `torch.topk`'s, so compare picks by their
+    distances, not their indices."""
+    m = int(window)
+    a = _as_f64(ts_a)
+    rows = torch.as_tensor(rows, dtype=torch.long, device=a.device)
+    wa, na = _centered_windows(a, m)
+    wb, nb = _centered_windows(_as_f64(ts_b, a.device), m)
+    d = corr_to_dist(_corr(wa[rows], na[rows], wb, nb), m)
+    if exclusion > 0:
+        j = torch.arange(wb.shape[0], device=a.device)
+        d = torch.where((rows[:, None] - j[None, :]).abs() < int(exclusion),
+                        torch.inf, d)
+    return torch.topk(d, int(k), dim=1, largest=False)

@@ -201,3 +201,33 @@ def test_rowstream_reseed_rows_are_exact_dots():
                                rtol=0, atol=2e-6)
     np.testing.assert_allclose(pb.corr.double().numpy(), dense.max(axis=0),
                                rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f64"])
+def test_rowstream_precision_matches_reference(precision):
+    """16-bit streams and f64 accumulation on rowstream: the streams are
+    upcast to the accumulator dtype at load, as in the reference."""
+    import jax
+
+    a, b = walk(400, seed=50), walk(150, seed=51)
+    m = 16
+    with jax.enable_x64(precision == "f64"):
+        ref = ref_ab_join(a, b, m, return_b=True, precision=precision)
+        rp, ri = np.asarray(ref.p, np.float64), np.asarray(ref.i)
+        rbp, rbi = np.asarray(ref.b_p, np.float64), np.asarray(ref.b_i)
+    assert ref.backend == "rowstream"
+    res = ab_join(a, b, m, return_b=True, backend="rowstream",
+                  precision=precision, device="cpu")
+    want = torch.float64 if precision == "f64" else torch.float32
+    assert res.p.dtype == want
+    dense = dense_corr(a, b, m)
+    for p, i, pp, pi, d in ((rp, ri, res.p, res.i, dense),
+                            (rbp, rbi, res.b_p, res.b_i, dense.T)):
+        # the port's values against the reference's: the streams (bf16
+        # included) are the same bits, so only the sweeps' order differs
+        np.testing.assert_allclose(corr_of(pp, m), corr_of(p, m), rtol=0,
+                                   atol=1e-4 if precision == "bf16"
+                                   else 1e-10)
+        if precision == "f64":
+            assert_topk(corr_of(p, m)[:, None], i[:, None],
+                        corr_of(pp, m)[:, None], pi[:, None], d)

@@ -162,6 +162,28 @@ def test_topk_union_resolves_ties_to_the_accumulator(k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
+@pytest.mark.gpu
+def test_stable_topk_and_union_on_card():
+    """On the card, at the shapes of a band tile and a column-state union,
+    with exact ties everywhere: the same values and indices as on the CPU
+    (CUDA's `torch.topk` is not stable, the port's top-k and union are)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tile = torch.from_numpy(_tie_tile((256, 50000), seed=1))
+    for k in (1, 4, 8):
+        cpu = tmp._topk_rows(tile.clone(), k)
+        card = tmp._topk_rows(tile.cuda(), k)
+        for x, y in zip(cpu, card):
+            assert torch.equal(x, y.cpu())
+    c = torch.from_numpy(-np.sort(-_tie_tile((300000, 8), seed=2), axis=1))
+    i = torch.arange(c.numel(), dtype=torch.int32).reshape(c.shape)
+    cpu = tmp._topk_union(c[:, :4], i[:, :4], c[:, 4:], i[:, 4:], 4)
+    card = tmp._topk_union(*(x.cuda() for x in (c[:, :4], i[:, :4],
+                                                c[:, 4:], i[:, 4:])), 4)
+    for x, y in zip(cpu, card):
+        assert torch.equal(x, y.cpu())
+
+
 def test_topk_state_carry_over_and_window_merge():
     ts = walk(260, seed=3).astype(np.float32)
     rs = rz.compute_stats_host(ts, 16)
@@ -441,3 +463,14 @@ def test_compute_stats_is_exported_and_f64_close():
     got = compute_stats(ts, 16, device="cpu").cov0.numpy()
     np.testing.assert_allclose(got, ref_cov0, rtol=0,
                                atol=1e-12 * np.abs(ref_cov0).max())
+
+
+def test_topk_f64_accumulation_matches_reference():
+    ts, m = walk(320, seed=60), 16
+    with jax.enable_x64(True):
+        ref = ref_matrix_profile(ts, m, k=3, precision="f64")
+        rp, ri = np.asarray(ref.topk_p, np.float64), np.asarray(ref.topk_i)
+    port = matrix_profile(ts, m, k=3, precision="f64", device="cpu")
+    assert port.backend == "engine" and port.topk_p.dtype == torch.float64
+    assert_topk(corr_of(rp, m), ri, corr_of(port.topk_p, m), port.topk_i,
+                dense_corr(ts, ts, m, 4), tol=1e-10)
