@@ -1,13 +1,15 @@
 """Exact z-normalized join: the band engine and the public entry points —
-port of `repro.core.matrix_profile` (the k = 1 engine and the entry layer).
+port of `repro.core.matrix_profile` (the z-normalized sweeps and the
+entry layer).
 
 `matrix_profile(ts, m)` is the self-join and `ab_join(a, b, m)` the AB
 join. Each validates its series, plans a sweep (`core.plan.plan_sweep`),
 builds the f64 host streams, executes the plan and wraps a
-`ProfileResult`. The planner sends a sweep to the CUDA NATSA kernel
+`ProfileResult`. The planner sends a k = 1 sweep to the CUDA NATSA kernel
 (`kernels/csrc/natsa_mp.cu`) unless the call asks for what only the band
 engine below does: a non-default `band`, `clamp_rows=False`, a reseed
-period, or f64 accumulation.
+period, or f64 accumulation. Top-k (k > 1) and batched sweeps run the band
+engine, or rowstream for a short AB side, as the reference plans them.
 
 The band engine is NATSA's diagonal recurrence re-associated into a
 cumulative sum along each diagonal,
@@ -23,8 +25,12 @@ triangle is the whole self-join profile. `reseed_every=R` recomputes the
 covariance exactly every R rows to bound f32 drift. The reference's
 `lax.scan` over bands is a Python loop over Python-int diagonal offsets,
 and its functional window merges are in-place slice updates here.
-The rowstream, top-k, non-normalized, batched and reduced-precision tile
-sweeps are not ported yet (the planner raises for them).
+`TopKState` widens every harvest to exact top-k sets (k > 1) off the same
+tiles, with stable unions so that equal values resolve as the reference's
+`lax.top_k` resolves them. The rowstream AB sweep walks A's rows instead
+of diagonals; batched entry points sweep each series of a stack. The
+non-normalized and reduced-precision tile sweeps are not ported yet (the
+planner raises for them).
 """
 
 from __future__ import annotations
@@ -924,6 +930,8 @@ def matrix_profile(ts, window: int, exclusion: int | None = None,
     `PrecisionSpec`) sets the stream and accumulator dtypes. A non-default
     `band`, a `reseed_every` other than its default or None, or f64
     accumulation plans the band engine; otherwise the CUDA kernel sweeps.
+    `k > 1` adds exact `(l, k)` top-k sets (`result.topk_p/topk_i`) from
+    the band engine, whatever the other options.
     """
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.result import build_result

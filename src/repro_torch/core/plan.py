@@ -1,20 +1,22 @@
 """Declarative sweep planning: one plan + executor behind every entry point.
 
 Port of `repro.core.plan`. Every entry point builds a frozen `SweepPlan`
-with `plan_sweep(...)` and hands it to `execute(...)`. Two backends are
-ported: the CUDA NATSA kernel ("kernel") and the band engine ("engine", the
-plain-tensor sweep of `core.matrix_profile`). `backend=None` resolves to
-the kernel unless the call asks for what only the engine does — a
-non-default `band`, `clamp_rows=False`, a `reseed_every` other than its
-default or None, or `accum="float64"` — and the plan records the choice.
-(The reference's planner picks its engine by default; the port's hot path
-is the kernel.) What the reference plans onto other sweeps raises
-`NotImplementedError` here, naming the ROADMAP.md item that brings it,
-rather than quietly taking another path:
+with `plan_sweep(...)` and hands it to `execute(...)`. Three backends are
+ported: the CUDA NATSA kernel ("kernel"), the band engine ("engine", the
+plain-tensor sweep of `core.matrix_profile`, with its exact top-k) and the
+row-streamed AB sweep ("rowstream"). `backend=None` resolves an unbatched
+k = 1 plan to the kernel unless the call asks for what only the engine
+does — a non-default `band`, `clamp_rows=False`, a `reseed_every` other
+than its default or None, or `accum="float64"`; every other plan (k > 1,
+`batch=`) resolves as the reference resolves it (rowstream for short AB
+sides, else the engine). The plan records the choice. Batched plans sweep
+each series of a stacked payload as the unbatched plan would. What the
+reference plans onto other sweeps raises `NotImplementedError` here,
+naming the ROADMAP.md item that brings it, rather than quietly taking
+another path:
 
-  * `backend="rowstream"`, `"distributed"`;
-  * `k > 1` (the reference plans a fallback to its band engine);
-  * `normalize=False` and batched plans (`batch=`);
+  * `backend="distributed"`;
+  * `normalize=False`;
   * 16-bit self-join streams on the engine (the reference's tile sweep);
   * on the kernel backend, a non-default `band` or `clamp_rows`, and a
     `reseed_every` other than its default or None: the CUDA kernel, like
@@ -22,12 +24,13 @@ rather than quietly taking another path:
     for plan parity and any other period would be silently ignored.
 
 Kept from the reference: AB orientation (`swap_ab`, the short side on rows
-for the kernel; the engine's row clamp makes it moot), the exclusion
-default, the harvest spec, the precision guard rails, and `col_tile`
-resolved as the reference resolves it so plans compare field by field —
-the CUDA kernel accumulates columns in one flat array and does not read
-it; the engine banks its column state by it. `interpret` becomes
-`device`: the device the streams, the sweep and the result live on.
+for the kernel and rowstream; the engine's row clamp makes it moot), the
+exclusion default, the harvest spec, every `ValueError` guard rail, and
+`col_tile` resolved as the reference resolves it so plans compare field
+by field — the CUDA kernel accumulates columns in one flat array and does
+not read it; the engine banks its k = 1 column state by it. `interpret`
+becomes `device`: the device the streams, the sweep and the result live
+on.
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ from typing import Any
 class HarvestSpec:
     """What a sweep should harvest: `sides` "merged" (minimal, default) |
     "row" (A side only) | "both" (eager two-sided); `k` neighbors kept per
-    position (the port sweeps k = 1 only so far)."""
+    position."""
 
     sides: str = "merged"
     k: int = 1
