@@ -880,10 +880,10 @@ def phase_flash() -> dict:
     return out
 
 
-def _plan_corr(res, kind: str, m: int):
-    """A SweepResult in correlation space, in `compare`'s layout: (row side
-    corr, idx, column side corr, idx) — right/left for a self-join, A/B for
-    an AB join."""
+def _sides(res, kind: str, m: int):
+    """A ProfileResult in correlation space, in `compare`'s layout: (row
+    side corr, idx, column side corr, idx) — right/left for a self-join,
+    A/B for an AB join."""
     import torch
 
     from repro_torch.core.zstats import dist_to_corr
@@ -893,9 +893,8 @@ def _plan_corr(res, kind: str, m: int):
                            dist_to_corr(dist.double(), m), -2.0).float()
 
     if kind == "self":
-        return (c(res.right_dist), res.right_index, c(res.left_dist),
-                res.left_index)
-    return c(res.dist), res.index, c(res.dist_b), res.index_b
+        return c(res.right_p), res.right_i, c(res.left_p), res.left_i
+    return c(res.p), res.i, c(res.b_p), res.b_i
 
 
 def phase_engine() -> list[dict]:
@@ -905,6 +904,7 @@ def phase_engine() -> list[dict]:
     import torch
 
     from repro_torch.core import plan as plan_mod
+    from repro_torch.core.result import build_result
     from repro_torch.core.zstats import compute_stats_host
 
     rng = np.random.default_rng(SEED + 7)
@@ -926,8 +926,8 @@ def phase_engine() -> list[dict]:
             t0 = time.perf_counter()
             res = plan_mod.execute(plan, stats)
             torch.cuda.synchronize()
-            got[plan.backend] = (res, time.perf_counter() - t0,
-                                 read_counts())
+            got[plan.backend] = (build_result(plan, res),
+                                 time.perf_counter() - t0, read_counts())
         (eng, eng_s, eng_counts), (ker, ker_s, ker_counts) = \
             got["engine"], got["kernel"]
         check(eng_counts["natsa_mp"] == 0 and ker_counts["natsa_mp"] > 0,
@@ -935,9 +935,8 @@ def phase_engine() -> list[dict]:
               f"{ker_counts}")
         ts_rows, ts_cols = (series[0], series[0]) if kind == "self" \
             else series
-        res = compare_full_size(_plan_corr(ker, kind, m),
-                                _plan_corr(eng, kind, m), ts_rows, ts_cols,
-                                m, 0)
+        res = compare_full_size(_sides(ker, kind, m), _sides(eng, kind, m),
+                                ts_rows, ts_cols, m, 0)
         check(res["max_abs_err"] <= TOL_ORACLE and res["tie_violations"] == 0
               and res["exact_pair_violations"] == 0,
               f"{kind}: engine vs kernel {res}")
@@ -981,22 +980,6 @@ def _topk_vs_oracle(tk_p, tk_i, ts_rows, ts_cols, m, rows,
     return {"rows": len(rows), "k": k, "max_corr_err": err,
             "pick_violations": picks, "index_mismatch":
             int((got_i != i_ref).sum()), "distinct": distinct}
-
-
-def _sides(res, kind: str, m: int):
-    """A ProfileResult in `compare`'s layout, correlations as
-    `_plan_corr`: (right, left) of a self-join, (A, B) of an AB join."""
-    import torch
-
-    from repro_torch.core.zstats import dist_to_corr
-
-    def c(dist):
-        return torch.where(torch.isfinite(dist),
-                           dist_to_corr(dist.double(), m), -2.0).float()
-
-    if kind == "self":
-        return c(res.right_p), res.right_i, c(res.left_p), res.left_i
-    return c(res.p), res.i, c(res.b_p), res.b_i
 
 
 def _timed(fn):

@@ -690,6 +690,7 @@ def ab_join_from_stats(cross: CrossStats, exclusion: int = 0,
     is one span. `two_sided=False` skips B's side (state_b None);
     `clamp_rows=False` sweeps every row of A for every band."""
     from repro_torch.core.precision import torch_dtype
+    from repro_torch.kernels.ops import ab_spans
 
     acc = torch_dtype(accum_dtype)
     la, lb = cross.l_a, cross.l_b
@@ -700,27 +701,13 @@ def ab_join_from_stats(cross: CrossStats, exclusion: int = 0,
         if two_sided else None
     kw = dict(two_sided=two_sided, clamp_rows=clamp_rows, col_tile=col_tile,
               accum_dtype=acc)
-    for k0, width, k_hi in _ab_engine_spans(la, lb, excl):
-        sa, sb = chunk_rowmax_ab(cross, k0, width, band, reseed_every,
+    for k0, k_hi in ab_spans(la, lb, excl):
+        sa, sb = chunk_rowmax_ab(cross, k0, k_hi - k0, band, reseed_every,
                                  k_hi=k_hi, **kw)
         state_a = state_a.merge(sa)
         if two_sided:
             state_b = state_b.merge(sb)
     return state_a, state_b
-
-
-def _ab_engine_spans(la: int, lb: int, excl: int) -> list[tuple]:
-    """(k0, width, k_hi) of each signed-diagonal span of an AB sweep: one
-    span with no exclusion (diagonal 0 evaluated once), else the negative
-    [-(l_a-1), -excl] and the positive [excl, l_b) spans."""
-    if excl == 0:
-        return [(-(la - 1), la - 1 + lb, lb)]
-    spans = []
-    if la - excl > 0:
-        spans.append((-(la - 1), la - excl, -excl + 1))
-    if lb - excl > 0:
-        spans.append((excl, lb - excl, lb))
-    return spans
 
 
 def band_topk_ab(cross: CrossStats, k0: int, band: int, k: int, *,
@@ -782,9 +769,10 @@ def ab_join_topk_from_stats(cross: CrossStats, exclusion: int = 0,
                             two_sided: bool = True, k: int = 4, *,
                             accum_dtype: str = "float32"):
     """Exact top-k AB join: `(l_a, k)` (and `(l_b, k)` with `two_sided`)
-    best-first sets from one signed-diagonal sweep, with the spans of
-    `ab_join_from_stats`."""
+    best-first sets from one signed-diagonal sweep, span by span
+    (`ops.ab_spans`), as `ab_join_from_stats`."""
     from repro_torch.core.precision import torch_dtype
+    from repro_torch.kernels.ops import ab_spans
 
     acc = torch_dtype(accum_dtype)
     la, lb = cross.l_a, cross.l_b
@@ -792,8 +780,8 @@ def ab_join_topk_from_stats(cross: CrossStats, exclusion: int = 0,
     state_a = TopKState.empty(la, k, dtype=acc, device=dev)
     state_b = (TopKState.empty(lb, k, dtype=acc, device=dev)
                if two_sided else None)
-    for k0, width, k_hi in _ab_engine_spans(la, lb, int(exclusion)):
-        sa, sb = chunk_topk_ab(cross, k0, width, band, k, reseed_every,
+    for k0, k_hi in ab_spans(la, lb, int(exclusion)):
+        sa, sb = chunk_topk_ab(cross, k0, k_hi - k0, band, k, reseed_every,
                                k_hi=k_hi, two_sided=two_sided,
                                accum_dtype=acc)
         state_a = state_a.merge(sa)

@@ -57,7 +57,6 @@ BACKENDS = ("engine", "rowstream", "kernel", "distributed")
 _NOT_PORTED = {
     "distributed": "distributed rounds (ROADMAP.md §A6)",
     "nonnorm": "non-normalized sweeps, normalize=False (ROADMAP.md §A2)",
-    "batch": "batched plans (ROADMAP.md §A2)",
     "tile": ("the reduced-precision self-join tile sweep that 16-bit streams "
              "take on the band engine, tile_profile_from_stats "
              "(ROADMAP.md §A2)"),
