@@ -229,7 +229,7 @@ def _topk_col_window(corr: torch.Tensor, k: int, fill: float = NEG):
     -1). `corr` is left as it was."""
     W = corr.shape[1] + corr.shape[0]
     win, d_win = _topk_rows(_skew(corr, fill), k)
-    win_i = (torch.arange(W, device=corr.device)[:, None] - d_win)
+    win_i = torch.arange(W, device=corr.device)[:, None] - d_win
     return win, torch.where(win > fill, win_i, -1).to(torch.int32)
 
 
@@ -811,9 +811,8 @@ def _rowstream_rows(cross: CrossStats, exclusion: int,
     """Yield (i, corr_i) for every row i of A: the (l_b,) correlation row,
     NEG where masked (a missing window, or |j - i| < exclusion). Rows at
     multiples of the reseed period replace the carry with exact centered
-    dots (a product and a sum, as `_exact_seeds`, so no TF32 mode touches
-    them);
-    `ab_reseed` drops the period where no diagonal outruns it."""
+    dots, a product and a sum as in `_exact_seeds`, so no TF32 mode touches
+    them; `ab_reseed` drops the period where no diagonal outruns it."""
     sa, sb = cross.a, cross.b
     la, lb = cross.l_a, cross.l_b
     excl = int(exclusion)
