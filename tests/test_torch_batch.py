@@ -185,6 +185,38 @@ def test_batched_carry_over_executes_like_the_reference():
         tplan.execute(tp, tz.stack_stats(tz.unstack_stats(port_stack)[:2]))
 
 
+def test_batched_cross_carry_over_executes_like_the_reference():
+    """`cross_stats_from_arrays` takes a batched reference `CrossStats`
+    stack bit for bit; a batched rowstream AB plan on it agrees with the
+    reference's vmap."""
+    a = _stack(["walk"] * 3, 150, seed0=50)
+    b = _stack(["sine"] * 3, 200, seed0=51)
+    m, k = 12, 2
+    parts = [rz.compute_cross_stats_host(x, y, m) for x, y in zip(a, b)]
+    st = jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                      *parts)
+    fields = {s: {f: getattr(getattr(st, s), f) for f in FIELDS}
+              for s in ("a", "b")} | {"cov0s": st.cov0s}
+    port = tz.cross_stats_from_arrays(fields, m, device="cpu")
+    assert port.cov0s.shape == (3, 139 + 189 - 1)
+    np.testing.assert_array_equal(port.a.df.numpy(), st.a.df)
+    kw = dict(batch=3, k=k, backend="rowstream", harvest="both")
+    rp = rplan.plan_sweep(m, 139, 189, **kw)
+    tp = tplan.plan_sweep(m, 139, 189, device="cpu", **kw)
+    assert not rp.swap_ab and not tp.swap_ab   # A is the swept row side
+    ref = rplan.execute(rp, jax.tree.map(jax.numpy.asarray, st))
+    got = tplan.execute(tp, port)
+    for r in range(3):
+        dense = dense_corr(a[r], b[r], m)
+        assert_topk(corr_of(np.asarray(ref.topk_dist[r]), m),
+                    np.asarray(ref.topk_index[r]),
+                    corr_of(got.topk_dist[r], m), got.topk_index[r], dense)
+        assert_topk(corr_of(np.asarray(ref.topk_dist_b[r]), m),
+                    np.asarray(ref.topk_index_b[r]),
+                    corr_of(got.topk_dist_b[r], m), got.topk_index_b[r],
+                    dense.T)
+
+
 @pytest.mark.parametrize("kw", [
     dict(batch=3, backend="kernel"),
     dict(batch=3, normalize=False),
