@@ -57,9 +57,28 @@ Phases, each printing one JSON line:
      `batch_ab_join` of 8 queries (l = 4096) against 8 series of 32768 on
      rowstream and with k = 4 on the engine, each stacked result bit for
      bit the per-series sequential calls;
- 12. `{"kernels": [...]}`: each ported kernel with its launches on every
-     path (0 on the three above), its error against the plain version and
-     its times beside its bound.
+ 12. `main_nonnorm`: `matrix_profile(ts, 256, normalize=False)` at
+     seismology-64k on a telemetry-like series with a planted level shift
+     (`analytics.discords` must name its window), and `ab_join(a, b, 128,
+     normalize=False, return_b=True)` at 131072 x 32768; 64 sampled rows
+     of each side against their f64 exact raw profile within 2e-3 + 2e-3 d;
+     reported, not gated: the same self-join on a random walk and on the
+     walk at level 1000, against the oracle;
+ 13. `main_tile`: `matrix_profile(ts, 512, backend="engine",
+     precision="bf16")` at ecg-256k, the tile sweep, within
+     `corr_tolerance(bf16, 512)` of 64 f64-oracle rows and of the k = 1
+     kernel path (near-tie rule), the same bits with TF32 on globally; its
+     FP32 and bf16 floors; reported beside the bound, the error of the
+     sampled rows with the products rounded to bf16;
+ 14. `main_streaming`: `StreamingProfile(128)` over a bench-16k series in
+     blocks of 256, z-normalized and raw: the snapshot against the batch
+     profile (3e-3) and 64 f64-oracle rows (1e-6), a 4096-point `query`
+     bit for bit `ab_join`, the last 64 points re-appended one at a time
+     (bitwise equality reported), ms per append;
+ 15. `{"kernels": [...]}`: each ported kernel with its launches on every
+     path (0 on phases 9-14 but the z-normalized streaming query, which
+     plans the NATSA kernel as `ab_join` does), its error against the
+     plain version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -115,6 +134,18 @@ ROWSTREAM_LQ = 4096                     # the reference's rowstream ceiling
 ROWSTREAM_NB, ROWSTREAM_M = 131072, 128  # epilepsy-128k (configs/natsa.py:16)
 BATCH_SELF_B, BATCH_SELF_N, BATCH_M = 4, 16384, 128  # bench-16k (natsa.py:23)
 BATCH_AB_B, BATCH_AB_LQ, BATCH_AB_NB = 8, 4096, 32768
+NONNORM_N, NONNORM_M = 65536, 256      # seismology-64k (configs/natsa.py:15)
+# raw distances: |d - d64| <= 2e-3 + 2e-3 d64, the reference's own
+# nonnorm-vs-brute-force tolerance (tests/test_ab_join.py:148,
+# tests/test_fused_twoside.py:144); indices may differ where the picked
+# pair's exact distance is within it of the oracle's
+NONNORM_ATOL = NONNORM_RTOL = 2e-3
+TILE_N, TILE_M = 262144, 512            # ecg-256k (configs/natsa.py:17)
+STREAM_N, STREAM_M, STREAM_BLOCK = 16384, 128, 256  # bench-16k (natsa.py:23)
+STREAM_QUERY_N, STREAM_REAPPEND = 4096, 64
+# snapshot vs the batch profile: the reference's own streaming tolerance
+# (tests/test_flash_and_streaming.py:85); vs the f64 oracle: both f64
+STREAM_TOL, STREAM_ORACLE_TOL = 3e-3, 1e-6
 
 
 def emit(obj) -> None:
@@ -179,11 +210,13 @@ def _exact_corr(ts_rows, ts_cols, m, i, j):
     return (unit_windows(ts_rows, i) * unit_windows(ts_cols, j)).sum(dim=1)
 
 
-def compare_full_size(kern, plain, ts_rows, ts_cols, m, jpad) -> dict:
-    """`compare` at TOL_ORACLE, plus the near-tie rule on the exact pairs:
-    where the two sides pick different valid indices, the f64 correlations
-    of the two picked pairs must be within TOL_ORACLE of each other."""
-    out = compare(kern, plain, TOL_ORACLE)
+def compare_full_size(kern, plain, ts_rows, ts_cols, m, jpad,
+                      tol: float = TOL_ORACLE) -> dict:
+    """`compare` at `tol` (default TOL_ORACLE), plus the near-tie rule on
+    the exact pairs: where the two sides pick different valid indices, the
+    f64 correlations of the two picked pairs must be within `tol` of each
+    other."""
+    out = compare(kern, plain, tol)
     out["exact_pair_violations"] = 0
     for side in (0, 1):
         ik, ip = kern[2 * side + 1], plain[2 * side + 1]
@@ -194,8 +227,7 @@ def compare_full_size(kern, plain, ts_rows, ts_cols, m, jpad) -> dict:
         else:              # column entry c = j + jpad -> row idx
             ek = _exact_corr(ts_rows, ts_cols, m, ik[at], at - jpad)
             ep = _exact_corr(ts_rows, ts_cols, m, ip[at], at - jpad)
-        out["exact_pair_violations"] += int(
-            ((ek - ep).abs() >= TOL_ORACLE).sum())
+        out["exact_pair_violations"] += int(((ek - ep).abs() >= tol).sum())
     return out
 
 
@@ -1212,6 +1244,373 @@ def phase_batch() -> dict:
     return out
 
 
+def telemetry(rng, n, level=0.0):
+    """A stationary series, as telemetry is: smoothed noise (an AR(1)-like
+    exponential filter, std ~3) around `level`. Raw distances round with
+    the series' level squared; `main_nonnorm` reports a random walk and an
+    offset walk beside it."""
+    kern = 0.95 ** np.arange(128)
+    return level + np.convolve(rng.standard_normal(n + 127), kern)[127:n + 127]
+
+
+def _nonnorm_vs_oracle(p, i, ts_rows, ts_cols, m, rows, exclusion) -> dict:
+    """Raw distances of the sampled `rows` against their f64 exact profile
+    on the card, within NONNORM_ATOL + NONNORM_RTOL d64; where an index
+    differs, the picked pair's exact distance must be within the same
+    tolerance of the oracle's."""
+    import torch
+
+    from repro_torch.core import ref
+
+    dev = torch.device(DEVICE)
+    a = torch.from_numpy(ts_rows).to(dev)
+    b = torch.from_numpy(ts_cols).to(dev)
+    d64, i64 = ref.profile_rows(a, b, m, rows, exclusion=exclusion,
+                                normalize=False)
+    at = torch.as_tensor(rows, device=dev)
+    got_p, got_i = p[at].double(), i[at].long()
+    check(bool(torch.isfinite(got_p).all() and (got_i >= 0).all()),
+          "sampled nonnorm rows have no neighbour")
+    limit = NONNORM_ATOL + NONNORM_RTOL * d64
+    err = (got_p - d64).abs()
+    own = (a.unfold(0, m, 1)[at] - b.unfold(0, m, 1)[got_i]).norm(dim=1)
+    mism = got_i != i64
+    return {"rows": len(rows), "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / d64.clamp(min=1e-12)).max()),
+            "violations": int((err > limit).sum()),
+            "idx_mismatch": int(mism.sum()),
+            "pick_violations": int(((own - d64).abs() > limit)[mism].sum())}
+
+
+def phase_nonnorm() -> dict:
+    """`matrix_profile(ts, 256, normalize=False)` at seismology-64k with a
+    planted level shift (`analytics.discords` must name its window), and
+    `ab_join(a, b, 128, normalize=False, return_b=True)` at the main AB
+    shape, each against the f64 exact raw profile of 64 sampled rows."""
+    import torch
+
+    from repro_torch.core import ab_join, analytics, matrix_profile
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.matrix_profile import default_exclusion
+
+    def sweep_s(res):
+        """Host seconds of the sweep alone: the same plan re-executed on the
+        retained payload."""
+        lazy = object.__getattribute__(res, "_lazy")
+        return _timed(lambda: plan_mod.execute(lazy.plan, lazy.stats))[1]
+
+    rng = np.random.default_rng(SEED + 14)
+    n, m = NONNORM_N, NONNORM_M
+    ts = telemetry(rng, n)
+    shift_at, shift_len = n // 3, m
+    ts[shift_at:shift_at + shift_len] += 3.0 * ts.std()
+    excl = default_exclusion(m)
+    l = n - m + 1
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res, e2e = _timed(lambda: matrix_profile(ts, m, normalize=False,
+                                             device=DEVICE))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(res.backend == "engine" and not res.normalize,
+          f"nonnorm self-join backend {res.backend}")
+    check(res.p.shape == (l,) and res.p.device.type == DEVICE
+          and bool(torch.isfinite(res.p).all()), "nonnorm self-join result")
+    top = analytics.discords(res, n=1)
+    check(len(top) == 1 and shift_at - m < top[0].position
+          < shift_at + shift_len, f"discord {top} misses the level shift "
+          f"at [{shift_at}, {shift_at + shift_len})")
+    rows = np.sort(np.random.default_rng(SEED + 15).choice(
+        l, SAMPLED_ROWS, replace=False))
+    self_oracle = _nonnorm_vs_oracle(res.p, res.i, ts, ts, m, rows, excl)
+    check(self_oracle["violations"] == 0
+          and self_oracle["pick_violations"] == 0,
+          f"nonnorm self-join vs f64 oracle {self_oracle}")
+
+    m_ab = AB_M
+    a = telemetry(rng, AB_NA, level=5.0)
+    b = telemetry(rng, AB_NB, level=5.0)
+    la, lb = AB_NA - m_ab + 1, AB_NB - m_ab + 1
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rab, e2e_ab = _timed(lambda: ab_join(a, b, m_ab, normalize=False,
+                                         return_b=True, device=DEVICE))
+    counts_ab = read_counts()
+    peak_ab = torch.cuda.max_memory_allocated()
+    check(rab.backend == "engine" and rab.p.shape == (la,)
+          and rab.b_p.shape == (lb,)
+          and bool(torch.isfinite(rab.p).all()
+                   and torch.isfinite(rab.b_p).all()), "nonnorm AB result")
+    srng = np.random.default_rng(SEED + 16)
+    oracle_a = _nonnorm_vs_oracle(rab.p, rab.i, a, b, m_ab, np.sort(
+        srng.choice(la, SAMPLED_ROWS, replace=False)), 0)
+    oracle_b = _nonnorm_vs_oracle(rab.b_p, rab.b_i, b, a, m_ab, np.sort(
+        srng.choice(lb, SAMPLED_ROWS, replace=False)), 0)
+    for o in (oracle_a, oracle_b):
+        check(o["violations"] == 0 and o["pick_violations"] == 0,
+              f"nonnorm AB vs f64 oracle {o}")
+    for c in (counts, counts_ab):
+        check(c["natsa_mp"] == 0 and c["flash_attn"] == 0,
+              f"nonnorm path launched a kernel: {c}")
+
+    # reported, not gated: the raw self-join on a drifting series (a random
+    # walk) and on the walk at level 1000, where the f32 recurrence rounds
+    # with the level squared, and the same with f64 accumulation (the
+    # reference's CPU reading at n=16384 is `python tests/test_torch_nonnorm.py`)
+    wts = walk(np.random.default_rng(SEED + 21), n)
+    level_readings = {}
+    for kind, series in (("walk", wts), ("offset_walk", wts + 1000.0)):
+        for prec in ("f32", "f64"):
+            rw, e2e_w = _timed(lambda: matrix_profile(
+                series, m, normalize=False, precision=prec, device=DEVICE))
+            level_readings[f"{kind}_{prec}"] = {
+                "level_span": float(series.max() - series.min()),
+                "level_max_abs": float(np.abs(series).max()), "e2e_s": e2e_w,
+                **_nonnorm_vs_oracle(rw.p, rw.i, series, series, m, rows,
+                                     excl)}
+            del rw
+    out = {"phase": "main_nonnorm", "card": torch.cuda.get_device_name(0),
+           "tolerance": f"|d - d64| <= {NONNORM_ATOL} + {NONNORM_RTOL} d64",
+           "counts": {"self": counts, "ab": counts_ab},
+           "self": {"n": n, "m": m, "exclusion": excl, "e2e_s": e2e,
+                    "ms": 1e3 * sweep_s(res), "peak_device_bytes": peak,
+                    "level_shift": [shift_at, shift_at + shift_len],
+                    "discord": [top[0].position, top[0].score],
+                    "oracle": self_oracle,
+                    "level_readings_not_gated": level_readings},
+           "ab": {"n_a": AB_NA, "n_b": AB_NB, "m": m_ab, "e2e_s": e2e_ab,
+                  "ms": 1e3 * sweep_s(rab), "peak_device_bytes": peak_ab,
+                  "oracle_a": oracle_a, "oracle_b": oracle_b}}
+    emit(out)
+    return out
+
+
+def _tile_bf16_product_reading(stats, ts, m, rows, exclusion) -> float:
+    """Reported, not gated: the max correlation error against the f64
+    oracle of the sampled rows' profile when the tile sweep's products are
+    rounded to bf16 (the sweep's own windows, invn and exclusion, the
+    product's f32 result rounded once more): what a sweep that lost its f32
+    accumulation would read, between the sweep's error and the bound."""
+    import torch
+
+    from repro_torch.core import ref
+    from repro_torch.core.matrix_profile import (_ieee_f32_matmul,
+                                                 centered_windows)
+    from repro_torch.core.zstats import dist_to_corr
+
+    dev = torch.device(DEVICE)
+    wc = centered_windows(stats).to(torch.bfloat16).float()
+    at = torch.as_tensor(rows, device=dev)
+    with _ieee_f32_matmul():
+        dot = (wc[at] @ wc.T).to(torch.bfloat16).float()
+    del wc
+    invn = stats.invn.float()
+    corr = dot * invn[at][:, None] * invn[None, :]
+    j = torch.arange(corr.shape[1], device=dev)
+    corr.masked_fill_((j[None, :] - at[:, None]).abs() < exclusion,
+                      float("-inf"))
+    d_ref, _ = ref.profile_rows(torch.from_numpy(ts).to(dev),
+                                torch.from_numpy(ts).to(dev), m, rows,
+                                exclusion=exclusion)
+    return float((corr.amax(dim=1).double()
+                  - dist_to_corr(d_ref, m)).abs().max())
+
+
+def phase_tile() -> dict:
+    """`matrix_profile(ts, 512, backend="engine", precision="bf16")` at
+    ecg-256k: the tile sweep, within `corr_tolerance(bf16, 512)` in
+    correlation of 64 f64-oracle rows and of the k = 1 NATSA kernel path
+    (near-tie rule); the same bits with TF32 switched on globally."""
+    import torch
+
+    from repro_torch.core import matrix_profile
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.matrix_profile import default_exclusion
+    from repro_torch.core.precision import as_precision, corr_tolerance
+    from repro_torch.core.zstats import dist_to_corr
+
+    rng = np.random.default_rng(SEED + 17)
+    n, m = TILE_N, TILE_M
+    pa, pb = n // 5, (3 * n) // 5 + 17
+    ts = plant(walk(rng, n), pa, pb, m)
+    excl = default_exclusion(m)
+    l = n - m + 1
+    tol = corr_tolerance(as_precision("bf16"), m)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res, e2e = _timed(lambda: matrix_profile(
+        ts, m, backend="engine", precision="bf16", harvest="both",
+        device=DEVICE))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+          f"tile path launched a kernel: {counts}")
+    check(res.backend == "engine" and res.p.shape == (l,)
+          and bool(torch.isfinite(res.p).all()), "tile sweep result")
+    check(int(res.i[pa]) == pb and int(res.i[pb]) == pa,
+          f"tile motif pair ({pa},{pb}) -> ({int(res.i[pa])},"
+          f"{int(res.i[pb])})")
+
+    # the same plan and streams with TF32 on globally: the same bits
+    lazy = object.__getattribute__(res, "_lazy")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        again, sweep_s = _timed(lambda: plan_mod.execute(lazy.plan,
+                                                         lazy.stats))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    tf32_same = all(torch.equal(x, y) for x, y in (
+        (again.dist, res.p), (again.index, res.i),
+        (again.left_dist, res.left_p), (again.left_index, res.left_i),
+        (again.right_dist, res.right_p), (again.right_index, res.right_i)))
+    check(tf32_same, "the tile sweep's bits change with TF32 on")
+    del again
+
+    rows = np.sort(np.random.default_rng(SEED + 18).choice(
+        l, SAMPLED_ROWS, replace=False))
+    oracle_err = _oracle_rows(res.p, ts, ts, m, rows, excl)
+    check(oracle_err <= tol, f"tile vs f64 oracle {oracle_err} > {tol}")
+    k1 = matrix_profile(ts, m, harvest="both", device=DEVICE)
+    check(k1.backend == "kernel", "the k = 1 path left the kernel")
+    vs_k1 = compare_full_size(_sides(k1, "self", m), _sides(res, "self", m),
+                              ts, ts, m, 0, tol=tol)
+    check(vs_k1["max_abs_err"] <= tol and vs_k1["tie_violations"] == 0
+          and vs_k1["exact_pair_violations"] == 0,
+          f"tile vs the k = 1 kernel path {vs_k1}")
+    bf16_products = _tile_bf16_product_reading(lazy.stats, ts, m, rows,
+                                               excl)
+    motif_corr = float(dist_to_corr(res.p[[pa, pb]].double(), m).min())
+    flops = float(l) * l * m      # 2 FLOP x m per pair of the triangle
+    out = {"phase": "main_tile", "card": torch.cuda.get_device_name(0),
+           "n": n, "m": m, "exclusion": excl,
+           "precision": "bf16", "tolerance_corr": tol, "counts": counts,
+           "e2e_s": e2e, "ms": 1e3 * sweep_s, "peak_device_bytes": peak,
+           "flops": flops,
+           "bound_ms_fp32": 1e3 * flops / FP32_PEAK,
+           "bound_ms_bf16": 1e3 * flops / BF16_PEAK,
+           "bound_by": "operations",
+           "tf32_on_bitwise_equal": tf32_same,
+           "motif": [pa, pb], "motif_corr": motif_corr,
+           "oracle_rows": SAMPLED_ROWS, "oracle_max_corr_err": oracle_err,
+           "vs_k1_kernel": vs_k1,
+           "corr_err_readings": {
+               "bound": tol, "vs_oracle": oracle_err,
+               "vs_k1_kernel": vs_k1["max_abs_err"],
+               "bf16_products_vs_oracle_not_gated": bf16_products}}
+    emit(out)
+    return out
+
+
+def _stream(normalize: bool, ts, reappend: bool):
+    """A `StreamingProfile(STREAM_M)` fed `ts` in blocks of STREAM_BLOCK
+    (with `reappend`, the last STREAM_REAPPEND points one at a time); the
+    host ms of each append, synchronized."""
+    import torch
+
+    from repro_torch.core.streaming import StreamingProfile
+
+    sp = StreamingProfile(STREAM_M, normalize=normalize, device=DEVICE)
+    cut = len(ts) - STREAM_REAPPEND if reappend else len(ts)
+    blocks = [ts[s:min(s + STREAM_BLOCK, cut)]
+              for s in range(0, cut, STREAM_BLOCK)]
+    if reappend:
+        blocks += [ts[s:s + 1] for s in range(cut, len(ts))]
+    times = []
+    for blk in blocks:
+        _, s = _timed(lambda: sp.append(blk))
+        times.append(1e3 * s)
+    torch.cuda.synchronize()
+    return sp, times
+
+
+def phase_streaming() -> dict:
+    """`StreamingProfile(128)` over a bench-16k telemetry series, appended
+    in blocks of 256, z-normalized and raw: the snapshot against the batch
+    `matrix_profile` (3e-3) and 64 f64-oracle rows; a 4096-point `query`
+    bit for bit `ab_join`; the last 64 points re-appended one at a time
+    (bitwise equality reported, not gated); ms per append."""
+    import torch
+
+    from repro_torch.core import ab_join, matrix_profile, ref
+
+    rng = np.random.default_rng(SEED + 19)
+    n, m = STREAM_N, STREAM_M
+    ts = telemetry(rng, n, level=2.0)
+    q = telemetry(rng, STREAM_QUERY_N, level=2.0)
+    l = n - m + 1
+    dev = torch.device(DEVICE)
+    out = {"phase": "main_streaming", "card": torch.cuda.get_device_name(0),
+           "n": n, "m": m, "block": STREAM_BLOCK,
+           "tolerance": {"vs_batch": STREAM_TOL,
+                         "vs_oracle": STREAM_ORACLE_TOL}}
+    for normalize in (True, False):
+        key = "znorm" if normalize else "raw"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sp, times = _stream(normalize, ts, reappend=False)
+        snap = sp.snapshot()
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+              f"streaming appends launched a kernel: {counts}")
+        check(snap.p.shape == (l,) and snap.p.dtype == torch.float64
+              and snap.p.device.type == DEVICE
+              and bool(torch.isfinite(snap.p).all()), "streaming snapshot")
+
+        batch = matrix_profile(ts, m, exclusion=sp.excl,
+                               normalize=normalize, device=DEVICE)
+        bp = batch.p.double()
+        vs_batch = float(((snap.p - bp).abs()
+                          - STREAM_TOL * bp.abs()).max())
+        check(vs_batch <= STREAM_TOL, f"{key}: snapshot vs batch {vs_batch}")
+        rows = np.sort(np.random.default_rng(SEED + 20).choice(
+            l, SAMPLED_ROWS, replace=False))
+        d64, _ = ref.profile_rows(torch.from_numpy(ts).to(dev),
+                                  torch.from_numpy(ts).to(dev), m, rows,
+                                  exclusion=sp.excl, normalize=normalize)
+        at = torch.as_tensor(rows, device=dev)
+        oracle_err = float((snap.p[at] - d64).abs().max())
+        check(oracle_err <= STREAM_ORACLE_TOL,
+              f"{key}: snapshot vs f64 oracle {oracle_err}")
+
+        reset_counts()
+        rq, q_s = _timed(lambda: sp.query(q))
+        q_counts = read_counts()
+        ra = ab_join(q, ts, m, normalize=normalize, device=DEVICE)
+        query_equal = (torch.equal(rq.p, ra.p.double())
+                       and torch.equal(rq.i, ra.i.long()))
+        check(query_equal and rq.backend == ra.backend,
+              f"{key}: query != ab_join ({rq.backend}, {ra.backend})")
+
+        sp2, times2 = _stream(normalize, ts, reappend=True)
+        snap2 = sp2.snapshot()
+        reappend_equal = all(torch.equal(getattr(snap, f), getattr(snap2, f))
+                             for f in ("p", "i", "left_p", "left_i",
+                                       "right_p", "right_i"))
+        out[key] = {"counts": counts, "query_counts": q_counts,
+                    "query_backend": rq.backend, "e2e_s": e2e,
+                    "ms": float(sum(times)), "peak_device_bytes": peak,
+                    "append_ms": {"blocks": len(times),
+                                  "median": float(np.median(times)),
+                                  "max": float(max(times)),
+                                  "first": times[0], "last": times[-1]},
+                    "single_append_ms_median": float(np.median(
+                        times2[-STREAM_REAPPEND:])),
+                    "vs_batch_excess": vs_batch,
+                    "oracle_rows": SAMPLED_ROWS,
+                    "oracle_max_abs_err": oracle_err,
+                    "query_ms": 1e3 * q_s, "query_bitwise_ab_join":
+                    query_equal, "reappend_bitwise_equal": reappend_equal}
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1229,8 +1628,18 @@ def main() -> None:
     tk = phase_topk()
     rs = phase_rowstream()
     bt = phase_batch()
+    nn = phase_nonnorm()
+    tl = phase_tile()
+    st = phase_streaming()
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
-                 "batch": bt}
+                 "batch": bt,
+                 "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
+                 "ab_join_nonnorm": {"counts": nn["counts"]["ab"]},
+                 "matrix_profile_tile": tl,
+                 "streaming_append": {"counts": st["znorm"]["counts"]},
+                 "streaming_append_raw": {"counts": st["raw"]["counts"]},
+                 "streaming_query": {"counts": st["znorm"]["query_counts"]},
+                 "streaming_query_raw": {"counts": st["raw"]["query_counts"]}}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,

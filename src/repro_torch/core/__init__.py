@@ -1,25 +1,28 @@
-"""Core of the port: stream prep, planning, results and the entry points."""
+"""Core of the port: stream prep, planning, results, analytics and the
+entry points."""
 
+from repro_torch.core import analytics
 from repro_torch.core.matrix_profile import (
     ProfileState, TopKState, ab_join, batch_ab_join, batch_profile,
-    default_exclusion, matrix_profile, top_discords, top_motif,
+    matrix_profile, top_discords, top_motif,
 )
 from repro_torch.core.plan import SweepPlan, SweepResult, execute, plan_sweep
 from repro_torch.core.precision import (
     DEFAULT_PRECISION, PrecisionSpec, as_precision,
 )
-from repro_torch.core.result import HarvestSpec, ProfileResult, build_result
+from repro_torch.core.result import HarvestSpec, ProfileResult
 from repro_torch.core.zstats import (
-    CrossStats, ZStats, compute_cross_stats_host, compute_stats,
-    compute_stats_host, corr_to_dist, dist_to_corr, self_cross,
+    CrossStats, ZStats, compute_cross_stats_host, compute_stats, corr_to_dist,
+    self_cross,
 )
 
+# The reference's public surface less what is not ported yet:
+# `StreamingFleet` (ROADMAP.md §A5) and `round_executor` (§A6).
 __all__ = [
     "CrossStats", "DEFAULT_PRECISION", "HarvestSpec", "PrecisionSpec",
     "ProfileResult", "ProfileState", "SweepPlan", "SweepResult", "TopKState",
-    "ZStats", "ab_join", "as_precision", "batch_ab_join", "batch_profile",
-    "build_result", "compute_cross_stats_host", "compute_stats",
-    "compute_stats_host", "corr_to_dist", "default_exclusion",
-    "dist_to_corr", "execute", "matrix_profile", "plan_sweep", "self_cross",
+    "ZStats", "ab_join", "analytics", "as_precision", "batch_ab_join",
+    "batch_profile", "compute_cross_stats_host", "compute_stats",
+    "corr_to_dist", "execute", "matrix_profile", "plan_sweep", "self_cross",
     "top_discords", "top_motif",
 ]

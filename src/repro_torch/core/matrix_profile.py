@@ -29,12 +29,14 @@ and its functional window merges are in-place slice updates here.
 tiles, with stable unions so that equal values resolve as the reference's
 `lax.top_k` resolves them. The rowstream AB sweep walks A's rows instead
 of diagonals; batched entry points sweep each series of a stack. The
-non-normalized and reduced-precision tile sweeps are not ported yet (the
-planner raises for them).
+non-normalized sweeps run the same band tiles on the raw squared-distance
+recurrence, and 16-bit self-join streams on the engine take the tile
+sweep: products of window tiles, no recurrence.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -509,6 +511,118 @@ def profile_topk_from_stats(stats: ZStats, exclusion: int,
     return rows.merge(col), rows, col
 
 
+# -- reduced-precision self-join: the tile sweep --------------------------------
+
+# Tile edge of the reduced-precision sweep: rows of A per product (any
+# positive edge gives the same answer).
+TILE_EDGE = 512
+
+
+@contextlib.contextmanager
+def _ieee_f32_matmul():
+    """f32 matmuls in full f32 (no TF32) inside the block; the caller's
+    setting, through either of torch's two switches, is restored after."""
+    try:
+        prev = torch.get_float32_matmul_precision()
+    except RuntimeError:        # the caller used the per-backend switch
+        mm = torch.backends.cuda.matmul
+        prev_backend = mm.fp32_precision
+        mm.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            mm.fp32_precision = prev_backend
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def tile_profile_from_stats(stats: ZStats, exclusion: int, *,
+                            tile: int = TILE_EDGE,
+                            stream_dtype: str = "bfloat16",
+                            accum_dtype: str = "float32") -> SplitProfile:
+    """Reduced-precision self-join sweep: QT by products of window tiles,
+    no recurrence.
+
+    The windows are centered at the stats' precision (f32), rounded ONCE to
+    the 16-bit stream dtype, then upcast exactly to the accum dtype: every
+    cell is one m-term dot of exact 16-bit products summed in the accum
+    dtype, with TF32 off for the product (`_ieee_f32_matmul`). Its error is
+    the closed-form `precision.corr_tolerance`, with no drift along a
+    diagonal and no reseed (`reseed_every` does not apply).
+
+    One `(tile, m) x (m, lp - r*tile)` product per tile row r covers the
+    reference's tile pairs (r, c >= r). Its tie rule is kept bit for bit:
+    inside a tile a max takes the LARGEST index; across tiles a strict `>`
+    keeps the earlier tile (the row side takes the first tile attaining
+    its max; the column side merges tile rows r = 0, 1, ... in order). The
+    row max is the RIGHT profile, the column max the LEFT. Padding rows
+    carry the invn = -1 sentinel, so they are never selected; missing-data
+    and flat-window conventions are the streams'."""
+    from repro_torch.core.precision import torch_dtype
+
+    acc = torch_dtype(accum_dtype)
+    sdt = torch_dtype(stream_dtype)
+    m = stats.window
+    l = stats.n_subsequences
+    excl = int(exclusion)
+    dev = stats.invn.device
+
+    nt = -(-l // tile)
+    lp = nt * tile
+    wcp = torch.zeros((lp, m), dtype=acc, device=dev)
+    wcp[:l] = centered_windows(stats).to(sdt)       # rounded once, upcast
+    invp = torch.full((lp,), -1.0, dtype=acc, device=dev)
+    invp[:l] = stats.invn.to(acc)
+    rc = torch.full((lp,), NEG, dtype=acc, device=dev)
+    ri = torch.full((lp,), -1, dtype=torch.int32, device=dev)
+    cc, ci = rc.clone(), ri.clone()
+    lt = torch.arange(tile, dtype=torch.int32, device=dev)
+    with _ieee_f32_matmul():
+        for r in range(nt):
+            i0 = r * tile
+            n_c = nt - r
+            ia, ib = invp[i0:i0 + tile], invp[i0:]
+            corr = wcp[i0:i0 + tile] @ wcp[i0:].T        # (tile, n_c*tile)
+            corr.mul_(ia[:, None]).mul_(ib[None, :])
+            corr.masked_fill_((ia < 0)[:, None] | (ib < 0)[None, :], NEG)
+            # j - i < excl only in the leading columns of this tile row
+            e = min(corr.shape[1], max(tile + excl - 1, 0))
+            je = torch.arange(e, dtype=torch.int32, device=dev)
+            corr[:, :e].masked_fill_(je[None, :] - lt[:, None] < excl, NEG)
+
+            # row side: per-tile max, its largest in-tile index, then the
+            # first tile attaining the row's max
+            c3 = corr.view(tile, n_c, tile)
+            tmax = c3.amax(dim=2)                             # (tile, n_c)
+            targ = torch.where(c3 == tmax[..., None], lt, -1).amax(dim=2)
+            best = tmax.amax(dim=1)
+            first = torch.where(tmax == best[:, None],
+                                torch.arange(n_c, device=dev),
+                                n_c).amin(dim=1)
+            j = (i0 + first * tile
+                 + targ.gather(1, first[:, None]).squeeze(1))
+            rc[i0:i0 + tile] = best
+            ri[i0:i0 + tile] = torch.where(best > NEG, j, -1).to(torch.int32)
+
+            # column side: max over the tile's rows, the largest row
+            # attaining it, merged after the earlier tile rows
+            cbest = corr.amax(dim=0)
+            carg = torch.where(corr == cbest[None, :], i0 + lt[:, None],
+                               -1).amax(dim=0)
+            carg = torch.where(cbest > NEG, carg, -1).to(torch.int32)
+            seg_c, seg_i = cc[i0:], ci[i0:]
+            take = cbest > seg_c
+            seg_i.copy_(torch.where(take, carg, seg_i))
+            seg_c.copy_(torch.where(take, cbest, seg_c))
+    rows = ProfileState(rc[:l], ri[:l])
+    col = ProfileState(cc[:l], ci[:l])
+    return SplitProfile(merged=rows.merge(col), right=rows, left=col)
+
+
 # -- AB engine: the signed diagonal space of the rectangle --------------------
 #
 # Diagonal k = j - i in [-(l_a-1), l_b) starts at cell (max(0,-k), max(0,k))
@@ -897,6 +1011,227 @@ def ab_join_rowstream_topk(cross: CrossStats, exclusion: int = 0,
     return TopKState(pa, ja), tb
 
 
+# -- non-normalized sweeps ----------------------------------------------------
+#
+# The same diagonal streaming with the raw squared-distance recurrence
+#     D2(i+1, j+1) = D2(i, j) + (T[i+m] - T[j+m])^2 - (T[i] - T[j])^2.
+# Level shifts are NOT normalized away: this is the telemetry monitor's
+# distance (a z-normalized profile is blind to amplitude anomalies). States
+# hold the NEGATED squared distance with -inf for "no cell yet", so every
+# max-merge of the z-normalized engine applies unchanged. Raw squared
+# distances have no [-1, 1] bound: the recurrence's rounding grows with the
+# series' level squared, as in the reference.
+
+
+def _window_sumsq(ts: torch.Tensor, m: int) -> torch.Tensor:
+    """(l,) sums of squares of the length-m windows, from a cumsum."""
+    csq = torch.cat([ts.new_zeros(1), torch.cumsum(ts * ts, 0)])
+    return csq[m:] - csq[:-m]
+
+
+def _nonnorm_self_parts(ts: torch.Tensor, m: int, band: int):
+    """What every band of a nonnorm self-join shares: the windows' sums of
+    squares, the first row's dots, and the series padded so every strip is
+    one slice (`tsp[x] = ts[x - 1]`; pad reads are masked)."""
+    from repro_torch.core.zstats import sliding_dot
+
+    l = ts.shape[0] - m + 1
+    return (_window_sumsq(ts, m), sliding_dot(ts[:m], ts),
+            F.pad(ts, (1, l + band)))
+
+
+def band_rowmin_nonnorm(ts: torch.Tensor, window: int, k0: int, band: int,
+                        *, parts=None):
+    """Nonnorm two-sided harvest of self-join diagonals [k0, k0 + band):
+    (neg_d2 (l,), idx, win (l + band,), win_i) — negated so max-merges
+    apply; (win, win_i) is the tile's column window (`_col_window`).
+    `parts` are `_nonnorm_self_parts`, computed here when not given."""
+    m = int(window)
+    l = ts.shape[0] - m + 1
+    dev = ts.device
+    ssq, qt0, tsp = parts if parts is not None else _nonnorm_self_parts(
+        ts, m, band)
+    ks = k0 + torch.arange(band, device=dev)               # (D,)
+    i = torch.arange(l, device=dev)
+    j = i[None, :] + ks[:, None]                           # (D, l)
+    valid = j < l
+    kc = torch.clamp(ks, max=l - 1)
+    d20 = ssq[0] + ssq[kc] - 2 * qt0[kc]                   # D2(0, k)
+
+    W = l + band
+    tim = tsp[m:m + l][None, :]                            # T[i+m-1]
+    tip = tsp[:l][None, :]                                 # T[i-1]
+    tjm = _unskew(tsp[k0 + m:k0 + m + W], band, l)         # T[j+m-1]
+    tjp = _unskew(tsp[k0:k0 + W], band, l)                 # T[j-1]
+    delta = (tim - tjm).square() - (tip - tjp).square()
+    delta = torch.where(valid & (i >= 1)[None, :], delta, 0.0)
+    d2 = d20[:, None] + torch.cumsum(delta, dim=1)
+    neg = torch.where(valid, -torch.clamp(d2, min=0.0), -torch.inf)
+
+    neg_best, d_win = row_harvest(neg)
+    idx = torch.where(torch.isfinite(neg_best), i + k0 + d_win,
+                      -1).to(torch.int32)
+    win, win_i = _col_window(neg, -torch.inf)
+    return neg_best, idx, win, win_i
+
+
+def nonnorm_to_distance(state: ProfileState) -> torch.Tensor:
+    """Finish a nonnorm state (corr = negated squared distance) to the
+    Euclidean distance; inf where the side never saw a cell."""
+    dist = torch.sqrt(torch.clamp(-state.corr, min=0.0))
+    return torch.where(torch.isfinite(state.corr), dist, torch.inf)
+
+
+def nonnorm_profile_from_ts(ts: torch.Tensor, window: int, exclusion: int,
+                            band: int = DEFAULT_BAND, *,
+                            accum_dtype: str = "float32") -> SplitProfile:
+    """The nonnorm self-join: one two-sided sweep of diagonals k in
+    [excl, l), the whole computation in `accum_dtype`. Returns states in
+    negated squared distance; finish each with `nonnorm_to_distance`."""
+    from repro_torch.core.precision import torch_dtype
+
+    m = int(window)
+    excl = int(exclusion)
+    acc = torch_dtype(accum_dtype)
+    ts = ts.to(acc)
+    dev = ts.device
+    l = ts.shape[0] - m + 1
+    parts = _nonnorm_self_parts(ts, m, band)
+    rows = ProfileState.empty(l, -torch.inf, dtype=acc, device=dev)
+    col = ColState.empty(0, l, l + band, -torch.inf, dtype=acc, device=dev)
+    for b in range(-(-(l - excl) // band)):
+        start = excl + b * band
+        rneg, ridx, win, wi = band_rowmin_nonnorm(ts, m, start, band,
+                                                  parts=parts)
+        rows = rows.merge(ProfileState(rneg, ridx))
+        col.merge_window(win, wi, start)
+    left = col.to_profile(0, l)
+    return SplitProfile(merged=rows.merge(left), right=rows, left=left)
+
+
+def _nonnorm_padded_series(ts_a, ts_b, band: int, li: int,
+                           clamp_rows: bool = True):
+    """Pad raw series so every row slice (at i0 - 1) and every strip (at
+    i0 + k0 - 1 .. + m - 1 + li + band) of a band is in bounds; pad reads
+    are masked before any harvest. Returns (pad_left, A padded, B padded);
+    the unclamped sweep needs l_a - 1 more left slack."""
+    la = ts_a.shape[0]            # >= l_a, a safe left-slack bound
+    pad_left = band if clamp_rows else band + la - 1
+    return (pad_left, F.pad(ts_a, (1, li + 1)),
+            F.pad(ts_b, (pad_left + 1, li + 2 * band + 1)))
+
+
+def band_rowmin_nonnorm_ab(ts_a: torch.Tensor, ts_b: torch.Tensor,
+                           d20s: torch.Tensor, window: int, k0: int,
+                           band: int, k_hi=None, harvest_cols: bool = True,
+                           clamp_rows: bool = True, padded=None):
+    """Nonnorm AB harvest over signed diagonals [k0, k0 + band). `d20s`
+    are the seed squared distances at each diagonal's first cell (index
+    k + l_a - 1). Returns (neg_d2 (li,), idx, win (li + band,), win_i, i0):
+    A's row window over rows [i0, i0 + li) and B's column window of the
+    same row-clamped tile (None with `harvest_cols=False`)."""
+    m = int(window)
+    la, lb = ts_a.shape[0] - m + 1, ts_b.shape[0] - m + 1
+    dev = ts_a.device
+    li = ab_row_tile(la, lb, band) if clamp_rows else la
+    i0 = max(0, -(k0 + band - 1)) if clamp_rows else 0
+    if padded is None:
+        padded = _nonnorm_padded_series(ts_a, ts_b, band, li, clamp_rows)
+    pad_left, tsa_p, tsb_p = padded
+
+    ks = k0 + torch.arange(band, device=dev)               # (D,) signed
+    i = i0 + torch.arange(li, device=dev)                  # (li,)
+    j = i[None, :] + ks[:, None]                           # (D, li)
+    valid = (j >= 0) & (j < lb) & (i < la)[None, :]
+    if k_hi is not None:
+        valid = valid & (ks < k_hi)[:, None]
+    d20 = d20s[torch.clamp(ks + la - 1, 0, la + lb - 2)]
+
+    def arow(offset):                                      # (li,) of A
+        s = _clamp_start(i0 + 1 + offset, tsa_p.shape[0], li)
+        return tsa_p[s:s + li]
+
+    W = li + band
+
+    def bstrips(offset):                                   # (D, li) of B
+        s = _clamp_start(i0 + k0 + pad_left + 1 + offset, tsb_p.shape[0], W)
+        return _unskew(tsb_p[s:s + W], band, li)
+
+    tim, tip = arow(m - 1)[None, :], arow(-1)[None, :]     # A[i+m-1], A[i-1]
+    tjm, tjp = bstrips(m - 1), bstrips(-1)                 # B[j+m-1], B[j-1]
+    delta = (tim - tjm).square() - (tip - tjp).square()
+    delta = torch.where(valid & (i >= 1)[None, :] & (j >= 1), delta, 0.0)
+    d2 = d20[:, None] + torch.cumsum(delta, dim=1)
+    neg = torch.where(valid, -torch.clamp(d2, min=0.0), -torch.inf)
+
+    neg_best, d_win = row_harvest(neg)
+    idx = torch.where(torch.isfinite(neg_best), i + k0 + d_win,
+                      -1).to(torch.int32)
+    win = win_i = None
+    if harvest_cols:
+        win, win_i = _col_window(neg, -torch.inf)
+        win_i = torch.where(torch.isfinite(win), win_i + i0,
+                            -1).to(torch.int32)
+    return neg_best.float(), idx, win, win_i, i0
+
+
+def ab_join_nonnorm(ts_a: torch.Tensor, ts_b: torch.Tensor, window: int,
+                    exclusion: int = 0, band: int = DEFAULT_BAND, *,
+                    two_sided: bool = True, clamp_rows: bool = True):
+    """Exact nonnorm AB join -> (dist_a (l_a,), idx_a, dist_b (l_b,),
+    idx_b), both sides from one signed-diagonal sweep in f32 (dist_b /
+    idx_b None with `two_sided=False`, which skips the column harvest).
+    The row clamp is the z-normalized engine's (`clamp_rows=False` sweeps
+    every row of A); with exclusion 0 the signed space is one span."""
+    from repro_torch.core.zstats import sliding_dot
+    from repro_torch.kernels.ops import ab_spans
+
+    m = int(window)
+    ts_a = torch.as_tensor(ts_a, dtype=torch.float32)
+    ts_b = torch.as_tensor(ts_b, dtype=torch.float32, device=ts_a.device)
+    dev = ts_a.device
+    # distances are invariant under a COMMON shift of both series; removing
+    # the shared level keeps the f32 seeds (ssq + ssq - 2 qt) conditioned on
+    # offset-heavy data (a shift per series would change the answer)
+    c = 0.5 * (ts_a.mean() + ts_b.mean())
+    ts_a = ts_a - c
+    ts_b = ts_b - c
+    la, lb = ts_a.shape[0] - m + 1, ts_b.shape[0] - m + 1
+    ssq_a, ssq_b = _window_sumsq(ts_a, m), _window_sumsq(ts_b, m)
+    qt_pos = sliding_dot(ts_a[:m], ts_b)                   # <A_0, B_k>
+    qt_neg = sliding_dot(ts_b[:m], ts_a)                   # <A_i, B_0>
+    d20_pos = ssq_a[0] + ssq_b - 2.0 * qt_pos              # k >= 0 seeds
+    d20_neg = ssq_a[1:] + ssq_b[0] - 2.0 * qt_neg[1:]      # k = -1 .. -(la-1)
+    d20s = torch.cat([d20_neg.flip(0), d20_pos])
+
+    pad_l = la - 1
+    li = ab_row_tile(la, lb, band) if clamp_rows else la
+    padded = _nonnorm_padded_series(ts_a, ts_b, band, li, clamp_rows)
+    merged_a = ProfileState.empty(la, -torch.inf, device=dev)
+    merged_b = (ProfileState.empty(lb, -torch.inf, device=dev)
+                if two_sided else None)
+    for k_lo, k_hi in ab_spans(la, lb, int(exclusion)):
+        rows = ColState.empty(0, la, li, -torch.inf, device=dev)
+        col = (ColState.empty(pad_l, lb, li + 2 * band, -torch.inf,
+                              device=dev) if two_sided else None)
+        for b in range(-(-(k_hi - k_lo) // band)):
+            start = k_lo + b * band
+            ra, ia, win, wi, i0 = band_rowmin_nonnorm_ab(
+                ts_a, ts_b, d20s, m, start, band, k_hi=k_hi,
+                harvest_cols=two_sided, clamp_rows=clamp_rows, padded=padded)
+            rows.merge_window(ra, ia, i0)
+            if two_sided:
+                col.merge_window(win, wi, start + i0 + pad_l)
+        merged_a = merged_a.merge(rows.to_profile(0, la))
+        if two_sided:
+            merged_b = merged_b.merge(col.to_profile(pad_l, lb))
+
+    da = nonnorm_to_distance(merged_a)
+    if not two_sided:
+        return da, merged_a.index, None, None
+    return da, merged_a.index, nonnorm_to_distance(merged_b), merged_b.index
+
+
 # -- entry points -------------------------------------------------------------
 
 
@@ -905,6 +1240,7 @@ def matrix_profile(ts, window: int, exclusion: int | None = None,
                    reseed_every: int | None = DEFAULT_RESEED, *,
                    k: int = 1, harvest: str = "merged",
                    normalize: bool = True, precision=None,
+                   backend: str | None = None,
                    device=None) -> "ProfileResult":
     """Full exact matrix profile -> `ProfileResult` on `device` (default
     the CUDA card; `device="cpu"` runs the kernel's plain version or the
@@ -918,7 +1254,13 @@ def matrix_profile(ts, window: int, exclusion: int | None = None,
     `band`, a `reseed_every` other than its default or None, or f64
     accumulation plans the band engine; otherwise the CUDA kernel sweeps.
     `k > 1` adds exact `(l, k)` top-k sets (`result.topk_p/topk_i`) from
-    the band engine, whatever the other options.
+    the band engine, whatever the other options. `backend` forces a sweep
+    ("kernel" or "engine"); 16-bit streams on the engine take the tile
+    sweep (`tile_profile_from_stats`).
+
+    `normalize=False` gives raw Euclidean distances from the nonnorm band
+    engine: finite samples only, k = 1, `reseed_every` ignored (its
+    recurrence has no reseed).
     """
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.result import build_result
@@ -926,14 +1268,21 @@ def matrix_profile(ts, window: int, exclusion: int | None = None,
     from repro_torch.core.zstats import compute_stats_host
 
     m = int(window)
+    if not normalize and k != 1:
+        raise ValueError(f"normalize=False supports only k=1, got k={k}")
     arr = validate_series(ts, m, require_finite=not normalize)
+    # the nonnorm recurrence has no reseed: its plan keeps the default
     plan = plan_mod.plan_sweep(m, arr.shape[0] - m + 1, exclusion=exclusion,
                                normalize=normalize, band=band,
-                               reseed_every=reseed_every, k=k,
-                               harvest=harvest, precision=precision,
-                               device=device)
-    stats = compute_stats_host(arr, m, device=plan.device,
-                               **plan_mod.stats_dtypes_for(plan))
+                               reseed_every=(reseed_every if normalize
+                                             else DEFAULT_RESEED),
+                               k=k, harvest=harvest, backend=backend,
+                               precision=precision, device=device)
+    if normalize:
+        stats = compute_stats_host(arr, m, device=plan.device,
+                                   **plan_mod.stats_dtypes_for(plan))
+    else:
+        stats = plan_mod.raw_series(plan, arr)
     res = plan_mod.execute(plan, stats)
     return build_result(plan, res, stats)
 
@@ -956,6 +1305,8 @@ def ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
     `result.b_topk_p` with `return_b`), swept by rowstream when the short
     side has at most AB_ROWSTREAM_MAX_ROWS rows, else by the band engine.
     `backend` forces a sweep ("kernel", "engine" or "rowstream").
+    `normalize=False` runs the nonnorm AB engine on the raw series (finite
+    samples only, f32).
     """
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.result import build_result
@@ -970,7 +1321,8 @@ def ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
                                band=band, reseed_every=reseed_every, k=k,
                                backend=backend, precision=precision,
                                device=device)
-    stats = plan_mod.cross_stats_for(plan, a, b)
+    stats = (plan_mod.cross_stats_for(plan, a, b) if normalize
+             else (plan_mod.raw_series(plan, a), plan_mod.raw_series(plan, b)))
     res = plan_mod.execute(plan, stats)
     return build_result(plan, res, stats)
 

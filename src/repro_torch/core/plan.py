@@ -3,21 +3,20 @@
 Port of `repro.core.plan`. Every entry point builds a frozen `SweepPlan`
 with `plan_sweep(...)` and hands it to `execute(...)`. Three backends are
 ported: the CUDA NATSA kernel ("kernel"), the band engine ("engine", the
-plain-tensor sweep of `core.matrix_profile`, with its exact top-k) and the
+plain-tensor sweep of `core.matrix_profile`, with its exact top-k, its
+nonnorm recurrence and the 16-bit self-join tile sweep) and the
 row-streamed AB sweep ("rowstream"). `backend=None` resolves an unbatched
-k = 1 plan to the kernel unless the call asks for what only the engine
-does — a non-default `band`, `clamp_rows=False`, a `reseed_every` other
-than its default or None, or `accum="float64"`; every other plan (k > 1,
-`batch=`) resolves as the reference resolves it (rowstream for short AB
-sides, else the engine). The plan records the choice. Batched plans sweep
-each series of a stacked payload as the unbatched plan would. What the
-reference plans onto other sweeps raises `NotImplementedError` here,
-naming the ROADMAP.md item that brings it, rather than quietly taking
+k = 1 z-normalized plan to the kernel unless the call asks for what only
+the engine does — a non-default `band`, `clamp_rows=False`, a
+`reseed_every` other than its default or None, or `accum="float64"`;
+every other plan (k > 1, `batch=`, `normalize=False`) resolves as the
+reference resolves it (rowstream for short z-normalized AB sides, else the
+engine). The plan records the choice. Batched plans sweep each series of a
+stacked payload as the unbatched plan would. What the reference plans onto
+other sweeps raises `NotImplementedError` here rather than quietly taking
 another path:
 
-  * `backend="distributed"`;
-  * `normalize=False`;
-  * 16-bit self-join streams on the engine (the reference's tile sweep);
+  * `backend="distributed"`, naming the ROADMAP.md item that brings it;
   * on the kernel backend, a non-default `band` or `clamp_rows`, and a
     `reseed_every` other than its default or None: the CUDA kernel, like
     the TPU kernel it replaces, never reseeds, so the default is recorded
@@ -56,10 +55,6 @@ BACKENDS = ("engine", "rowstream", "kernel", "distributed")
 # what is not ported yet -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
     "distributed": "distributed rounds (ROADMAP.md §A6)",
-    "nonnorm": "non-normalized sweeps, normalize=False (ROADMAP.md §A2)",
-    "tile": ("the reduced-precision self-join tile sweep that 16-bit streams "
-             "take on the band engine, tile_profile_from_stats "
-             "(ROADMAP.md §A2)"),
 }
 
 
@@ -177,6 +172,7 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
         resolved as the reference resolves it: "rowstream" for an
         unbatched, row-clamped z-normalized AB join whose short side has at
         most AB_ROWSTREAM_MAX_ROWS rows (and at least k), else "engine";
+        16-bit self-join streams on the engine take the tile sweep;
       * k > 1 on `backend="kernel"` plans the engine instead, with
         `col_tile` dropped (the kernel's accumulators are k = 1); top-k
         needs exclusion >= 1 on a self-join, k <= band, k <= min(l_a, l_b)
@@ -189,9 +185,8 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
         rounds them on load;
       * every `ValueError` of the reference's planner is raised here too,
         before the port's own refusals (`NotImplementedError`): the
-        kernel takes none of the engine's band options, and the 16-bit
-        self-join tile sweep, `normalize=False` and `distributed` are not
-        ported.
+        kernel takes none of the engine's band options, and `distributed`
+        is not ported.
     """
     m = int(window)
     prec = as_precision(precision)
@@ -271,16 +266,12 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
 
     if backend == "distributed":
         raise _not_ported("distributed")
-    if not normalize:
-        raise _not_ported("nonnorm")
     if backend == "kernel" and band_options:
         raise NotImplementedError(
             "the band engine's band, clamp_rows and reseed_every options "
             "are not the CUDA kernel's: it never reseeds its f32 "
             "covariance carry; plan backend='engine' (or leave "
             "backend=None) for them")
-    if backend == "engine" and kind == "self" and prec.reduced_stream:
-        raise _not_ported("tile")
     dev = resolve_device(device)
 
     # short side onto rows for the backends whose row axis is streamed
@@ -301,10 +292,23 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
 
 def stats_dtypes_for(plan: SweepPlan) -> dict:
     """The `(out_dtype, seed_dtype)` kwargs host stream prep needs under a
-    plan: both ported sweeps stream the stats arrays themselves, so they
-    are emitted directly in the plan's stream dtype."""
+    plan. The 16-bit self-join on the engine (the tile sweep) takes f32
+    stats and rounds only the CENTERED windows to the 16-bit dtype inside
+    the sweep: rounding the series first would scale the centering error
+    by the series' level, not the window's deviation. Every other sweep
+    streams the stats themselves, emitted in the plan's stream dtype."""
     prec = plan.precision
+    if (plan.kind == "self" and plan.normalize and prec.reduced_stream
+            and plan.backend == "engine"):
+        return dict(out_dtype=torch.float32, seed_dtype=prec.seed_dtype)
     return dict(out_dtype=prec.stream_dtype, seed_dtype=prec.seed_dtype)
+
+
+def raw_series(plan: SweepPlan, ts) -> torch.Tensor:
+    """A nonnorm plan's payload: the raw series in the plan's stream dtype,
+    on its device (an AB plan executes the `(ts_a, ts_b)` pair)."""
+    return torch.as_tensor(ts, dtype=plan.precision.stream_dtype,
+                           device=plan.device)
 
 
 def cross_stats_for(plan: SweepPlan, ts_a, ts_b) -> CrossStats:
@@ -323,25 +327,67 @@ def cross_stats_for(plan: SweepPlan, ts_a, ts_b) -> CrossStats:
     return compute_cross_stats_host(ts_a, ts_b, plan.window, **kw)
 
 
+def resident_stats(plan: SweepPlan, query, resident):
+    """`cross_stats_for`'s resident twin: the `execute` payload of an AB
+    plan whose corpus side (`core.resident.ResidentSide`) was built once
+    and stays cached across queries. Only the QUERY's streams are computed
+    here; `plan.swap_ab` is honored here, so resident callers never orient
+    the rectangle by hand. Assembly is `cross_stats_from_parts`, the seed
+    path of `compute_cross_stats_host`, so the payload is bitwise what
+    building both sides fresh gives. A nonnorm plan gets the `(query,
+    corpus series)` pair. Resident sides hold default-precision streams
+    only, so other precisions are refused."""
+    if plan.kind != "ab":
+        raise ValueError(f"resident_stats prepares AB plans, got "
+                         f"kind={plan.kind!r}")
+    if not plan.precision.is_default:
+        raise ValueError("resident corpus sides cache default-precision "
+                         "streams only; plan a default-precision sweep or "
+                         "build CrossStats directly via cross_stats_for")
+    if resident.normalize != plan.normalize:
+        raise ValueError(f"resident side is "
+                         f"normalize={resident.normalize}, plan wants "
+                         f"normalize={plan.normalize}")
+    if not plan.normalize:
+        return (raw_series(plan, query), resident.ts.to(plan.device))
+    from repro_torch.core.zstats import (
+        compute_stats_host, cross_stats_from_parts,
+    )
+
+    s_q, w_q = compute_stats_host(query, plan.window, min_subsequences=1,
+                                  return_centered_windows=True,
+                                  device=plan.device)
+    s_c = resident.stats.to(plan.device)
+    if plan.swap_ab:               # corpus shorter than the query: B on rows
+        return cross_stats_from_parts(s_c, resident.windows, s_q, w_q)
+    return cross_stats_from_parts(s_q, w_q, s_c, resident.windows)
+
+
 # -- executor -----------------------------------------------------------------
 
 
 def _check_stats(plan: SweepPlan, stats) -> None:
-    if plan.kind == "ab":
+    if not plan.normalize:
+        ok = (isinstance(stats, tuple) if plan.kind == "ab"
+              else isinstance(stats, torch.Tensor))
+        what = "(ts_a, ts_b) raw series" if plan.kind == "ab" else "raw series"
+    elif plan.kind == "ab":
         ok, what = isinstance(stats, CrossStats), "CrossStats"
     else:
         ok, what = isinstance(stats, ZStats), "ZStats"
     if not ok:
-        raise TypeError(f"{plan.kind}/z-norm plan expects {what}, got "
-                        f"{type(stats).__name__}")
+        raise TypeError(f"{plan.kind}/{'z-norm' if plan.normalize else 'raw'} "
+                        f"plan expects {what}, got {type(stats).__name__}")
 
 
 def execute(plan: SweepPlan, stats) -> SweepResult:
     """Run a plan on its payload: `ZStats` (self) or `CrossStats` in the
-    plan's SWEPT orientation (AB; see `cross_stats_for`). A batched plan
-    takes the same payload stacked (`zstats.stack_stats`) and sweeps each
-    series as the unbatched plan would, so every stacked field equals the
-    sequential calls bit for bit."""
+    plan's SWEPT orientation (AB; see `cross_stats_for`), or for a nonnorm
+    plan the raw series tensor (self) or the `(ts_a, ts_b)` pair (AB; see
+    `raw_series`). A batched plan takes the same payload stacked
+    (`zstats.stack_stats`) and sweeps each series as the unbatched plan
+    would, so every stacked field equals the sequential calls bit for
+    bit."""
     if plan.batch is not None:
         return _execute_batched(plan, stats)
     _check_stats(plan, stats)
@@ -402,9 +448,27 @@ def _attach(res: SweepResult, groups: tuple[str, ...], fin, eager: bool):
     return res
 
 
-def _execute_self(plan: SweepPlan, stats: ZStats) -> SweepResult:
+def _execute_self(plan: SweepPlan, stats) -> SweepResult:
     m = plan.window
     eager_split = plan.harvest.sides == "both"
+    if not plan.normalize:
+        from repro_torch.core.matrix_profile import (
+            nonnorm_profile_from_ts, nonnorm_to_distance,
+        )
+
+        split = nonnorm_profile_from_ts(
+            stats.to(plan.precision.stream_dtype), m, plan.exclusion,
+            plan.band, accum_dtype=plan.precision.accum)
+        res = SweepResult(nonnorm_to_distance(split.merged),
+                          split.merged.index)
+
+        def fin_nonnorm_split():
+            return dict(left_p=nonnorm_to_distance(split.left),
+                        left_i=split.left.index,
+                        right_p=nonnorm_to_distance(split.right),
+                        right_i=split.right.index)
+
+        return _attach(res, ("split",), fin_nonnorm_split, eager_split)
     if plan.harvest.k > 1:
         from repro_torch.core.matrix_profile import profile_topk_from_stats
 
@@ -425,11 +489,20 @@ def _execute_self(plan: SweepPlan, stats: ZStats) -> SweepResult:
 
         return _attach(res, ("split",), fin_topk_split, eager_split)
     if plan.backend == "engine":
-        from repro_torch.core.matrix_profile import profile_from_stats
+        from repro_torch.core.matrix_profile import (
+            profile_from_stats, tile_profile_from_stats,
+        )
 
-        split = profile_from_stats(stats, plan.exclusion, plan.band,
-                                   plan.reseed_every,
-                                   accum_dtype=plan.precision.accum)
+        if plan.precision.reduced_stream:
+            # the recurrence-free tile sweep: the engine's one self-join
+            # path for 16-bit streams
+            split = tile_profile_from_stats(
+                stats, plan.exclusion, stream_dtype=plan.precision.stream,
+                accum_dtype=plan.precision.accum)
+        else:
+            split = profile_from_stats(stats, plan.exclusion, plan.band,
+                                       plan.reseed_every,
+                                       accum_dtype=plan.precision.accum)
         res = SweepResult(split.merged.to_distance(m), split.merged.index)
 
         def fin_split():
@@ -455,9 +528,18 @@ def _execute_self(plan: SweepPlan, stats: ZStats) -> SweepResult:
     return _attach(res, ("split",), fin_split, eager_split)
 
 
-def _execute_ab(plan: SweepPlan, stats: CrossStats) -> SweepResult:
+def _execute_ab(plan: SweepPlan, stats) -> SweepResult:
     m = plan.window
     two_sided = plan.harvest.sides == "both"
+    if not plan.normalize:
+        from repro_torch.core.matrix_profile import ab_join_nonnorm
+
+        # the nonnorm sweep really skips the column harvest when one-sided:
+        # a lazily read B side recomputes through the same plan
+        ts_a, ts_b = stats
+        return SweepResult(*ab_join_nonnorm(
+            ts_a, ts_b, m, plan.exclusion, plan.band, two_sided=two_sided,
+            clamp_rows=plan.clamp_rows))
     if plan.harvest.k > 1:
         return _execute_ab_topk(plan, stats, two_sided)
     if plan.backend == "rowstream":

@@ -342,3 +342,105 @@ def corr_to_dist(corr: torch.Tensor, window: int) -> torch.Tensor:
 
 def dist_to_corr(dist: torch.Tensor, window: int) -> torch.Tensor:
     return 1.0 - dist * dist / (2.0 * window)
+
+
+# -- shared streaming block distances ------------------------------------------
+#
+# The incremental surfaces (`core.streaming.StreamingProfile`, and the fleet
+# that will share them) evaluate squared-distance BLOCKS between raw f64
+# window matrices instead of running the f32 diagonal recurrence: appends
+# are exact and drift-free. A fleet tenant must equal a per-series replay
+# bit for bit, which holds only if both run the same arithmetic, so the
+# block evaluator lives here as ONE op sequence:
+#
+#   * every dot product is an elementwise product and a sum over the window
+#     axis, never a matmul (GEMM tilings round differently per shape, and
+#     a TF32 mode could touch a matmul on the card);
+#   * every sum is `_tree_sum`: pairwise halving adds in a fixed order.
+#     `torch.sum` on the card picks its reduction order from the block's
+#     shape, so a one-row block would not equal the same row of a bulk
+#     block; elementwise adds round each output on its own, whatever the
+#     shape or the device;
+#   * f64 throughout: the callers hand f64 tensors in, and torch has no
+#     global dtype switch to set around them.
+#
+# Degenerate windows: a flat window correlates with nothing (corr 0); a
+# window touching a NaN/Inf sample is masked by the CALLER with
+# `window_finite_mask`, after the block, so NaNs flowing through it are
+# overwritten and never compared.
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order: halves added pairwise, an
+    odd length's last element carried to the next level."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        s = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([s, x[..., 2 * h:]], dim=-1) if x.shape[-1] % 2 else s
+    return x[..., 0]
+
+
+def centered_block(w: torch.Tensor):
+    """(..., q, m) raw windows -> (centered windows, centered norms). The
+    mean is a sum, then a division."""
+    s = _tree_sum(w)[..., None]
+    mu = s / w.shape[-1]
+    c = w - mu
+    sq = c * c
+    ss = _tree_sum(sq)
+    return c, torch.sqrt(ss)
+
+
+def window_finite_mask(w: torch.Tensor) -> torch.Tensor:
+    """(..., q, m) -> (..., q) bool: True where the window touches only
+    finite samples (the block path's `invn = -1` sentinel)."""
+    return torch.isfinite(w).all(dim=-1)
+
+
+def sqdist_znorm_from_parts(ac, an, bc, bn, *, window: int) -> torch.Tensor:
+    """Z-normalized squared distances from centered parts: `ac` (..., p, m)
+    / `an` (..., p) against `bc` (..., q, m) / `bn` (..., q) -> (..., p,
+    q). Split out so a caller can keep one side's parts resident."""
+    prod = ac[..., :, None, :] * bc[..., None, :, :]
+    cross = _tree_sum(prod)
+    nn = an[..., :, None] * bn[..., None, :]
+    denom = torch.clamp(nn, min=1e-300)
+    ratio = cross / denom
+    corr = torch.where((an[..., :, None] > 0) & (bn[..., None, :] > 0),
+                       ratio, 0.0)
+    om = 1.0 - torch.clamp(corr, -1.0, 1.0)
+    return (2.0 * int(window)) * om
+
+
+def window_sumsq(w: torch.Tensor) -> torch.Tensor:
+    """(..., q, m) raw windows -> (..., q) sums of squares."""
+    sq = w * w
+    return _tree_sum(sq)
+
+
+def sqdist_nonnorm_from_parts(wa, sa, wb, sb) -> torch.Tensor:
+    """Raw squared distances ||a - b||^2 by expansion, from the windows and
+    their sums of squares (`sa = sum(wa^2)`, `sb = sum(wb^2)`)."""
+    prod = wa[..., :, None, :] * wb[..., None, :, :]
+    cross = _tree_sum(prod)
+    ssum = sa[..., :, None] + sb[..., None, :]
+    c2 = 2.0 * cross
+    return ssum - c2
+
+
+def sqdist_block(wa: torch.Tensor, wb: torch.Tensor, *, window: int,
+                 normalize: bool = True) -> torch.Tensor:
+    """Squared distances between window matrices, (..., p, m) x (..., q, m)
+    -> (..., p, q): the one block evaluator of the incremental surfaces."""
+    if normalize:
+        ac, an = centered_block(wa)
+        bc, bn = centered_block(wb)
+        return sqdist_znorm_from_parts(ac, an, bc, bn, window=window)
+    return sqdist_nonnorm_from_parts(wa, window_sumsq(wa), wb,
+                                     window_sumsq(wb))
+
+
+def sqdist_block_jit(wa, wb, *, window: int, normalize: bool = True):
+    """`sqdist_block` under the reference's jitted name: torch runs it op by
+    op, so there is no compiled twin to keep bitwise equal to it."""
+    return sqdist_block(wa, wb, window=window, normalize=normalize)

@@ -450,8 +450,18 @@ def test_engine_f64_entry_matches_reference():
 
 
 def test_engine_runs_reduced_ab_streams_but_not_self():
+    """16-bit AB streams run the band engine's recurrence; a 16-bit
+    self-join on the engine takes the tile sweep instead (slice 6; once
+    refused here), within 1e-4 in correlation of the reference's."""
+    from repro.core import matrix_profile as ref_matrix_profile
+
     a, b = _series(300, seed=15), _series(200, seed=16)
     res = ab_join(a, b, 16, band=64, precision="bf16", device="cpu")
     assert res.backend == "engine" and bool(torch.isfinite(res.p).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A2"):
-        matrix_profile(a, 16, band=64, precision="f16", device="cpu")
+    port = matrix_profile(a, 16, band=64, precision="f16", device="cpu")
+    ref = ref_matrix_profile(a, 16, band=64, precision="f16")
+    assert port.backend == "engine"
+    rp = np.asarray(ref.p, np.float64)
+    _assert_state(rmp.ProfileState(1.0 - rp * rp / 32.0, np.asarray(ref.i)),
+                  tmp.ProfileState(tz.dist_to_corr(port.p.double(), 16),
+                                   port.i))

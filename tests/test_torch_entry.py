@@ -174,10 +174,7 @@ def test_recompute_path_matches_eager():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # 16-bit self-join streams on the engine take the tile sweep (§A2)
-    (dict(backend="engine", precision="bf16"), "band engine"),
     (dict(backend="distributed"), "distributed"),
-    (dict(normalize=False), "normalize=False"),
     # the kernel never reseeds: the engine's options refuse the kernel
     (dict(band=128, backend="kernel"), "band engine's band"),
     (dict(clamp_rows=False, backend="kernel"), "clamp_rows"),
@@ -193,11 +190,15 @@ def test_not_ported_raises(kw, match):
     (185, dict(backend="rowstream"), "rowstream"),
     (None, dict(k=2), "engine"),
     (None, dict(batch=4), "engine"),
+    # ported in slice 6: 16-bit self-join streams on the engine (the tile
+    # sweep) and normalize=False
+    (None, dict(backend="engine", precision="bf16"), "engine"),
+    (None, dict(normalize=False), "engine"),
 ])
 def test_newly_ported_plans_execute(l_b, kw, backend):
-    """The rowstream AB sweep, top-k and batched plans resolve their
-    backend and execute on the CPU (a rowstream plan needs an AB join:
-    self-joins have no rows to stream)."""
+    """The rowstream AB sweep, top-k, batched, tile and nonnorm plans
+    resolve their backend and execute on the CPU (a rowstream plan needs
+    an AB join: self-joins have no rows to stream)."""
     from repro_torch.core.zstats import compute_stats_host, stack_stats
 
     ts = _walk(300, seed=40)
@@ -209,8 +210,11 @@ def test_newly_ported_plans_execute(l_b, kw, backend):
     elif plan.batch:
         stats = stack_stats([compute_stats_host(ts + r, 16, device="cpu")
                              for r in range(plan.batch)])
+    elif not plan.normalize:
+        stats = tplan.raw_series(plan, ts)
     else:
-        stats = compute_stats_host(ts, 16, device="cpu")
+        stats = compute_stats_host(ts, 16, device="cpu",
+                                   **tplan.stats_dtypes_for(plan))
     res = tplan.execute(plan, stats)
     lead = (plan.batch,) if plan.batch else ()
     assert res.dist.shape == lead + (285,)
@@ -220,16 +224,24 @@ def test_newly_ported_plans_execute(l_b, kw, backend):
 
 
 def test_entry_points_raise_for_unported_options():
+    """Every option the entry points once refused now executes: top-k
+    (slice 5), normalize=False and 16-bit engine self-joins (slice 6)."""
     ts = _walk(300, seed=6)
     assert matrix_profile(ts, 16, k=3, device="cpu").topk_p.shape == (285, 3)
-    with pytest.raises(NotImplementedError):
-        matrix_profile(ts, 16, normalize=False, device="cpu")
+    raw = matrix_profile(ts, 16, normalize=False, device="cpu")
+    ref_raw = ref_matrix_profile(ts, 16, normalize=False)
+    assert (raw.backend, raw.normalize) == ("engine", False)
+    np.testing.assert_allclose(raw.p.numpy() ** 2,
+                               np.asarray(ref_raw.p, np.float64) ** 2,
+                               rtol=TOL, atol=TOL)
     assert ab_join(ts, ts[:200], 16, k=2,
                    device="cpu").topk_p.shape == (285, 2)
     assert tops.natsa_matrix_profile(ts, 16, k=2,
                                      device="cpu").backend == "engine"
-    with pytest.raises(NotImplementedError, match="tile sweep"):
-        matrix_profile(ts, 16, band=64, precision="bf16", device="cpu")
+    tile = matrix_profile(ts, 16, band=64, precision="bf16", device="cpu")
+    ref_tile = ref_matrix_profile(ts, 16, band=64, precision="bf16")
+    assert tile.backend == "engine"
+    _assert_profile(ref_tile.p, ref_tile.i, tile.p, tile.i, 16)
     # the kernel never reseeds: a reseed period or band it would ignore
     # plans the band engine instead
     assert matrix_profile(ts, 16, reseed_every=64,

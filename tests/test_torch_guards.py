@@ -310,3 +310,54 @@ def test_engine_matches_kernel_path_on_card(kind):
         assert float(err.max()) <= 1e-4
         mism = (getattr(eng, fi) != getattr(ker, fi))[fin]
         assert not bool((mism & (err >= 1e-4)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("normalize", [True, False])
+def test_streaming_appends_are_bitwise_on_card(normalize):
+    """The block kernels' fixed-order sums on the card: appending one
+    point at a time gives the bulk append's bits, and the card's snapshot
+    equals the CPU's within 1e-9 (both f64)."""
+    from repro_torch.core.streaming import StreamingProfile
+
+    _need_card()
+    ts = np.cumsum(np.random.default_rng(21).normal(size=700))
+    bulk = StreamingProfile(32, normalize=normalize, device="cuda")
+    bulk.append(ts)
+    single = StreamingProfile(32, normalize=normalize, device="cuda")
+    single.append(ts[:600])
+    for v in ts[600:]:
+        single.append(v)
+    host = StreamingProfile(32, normalize=normalize, device="cpu")
+    host.append(ts)
+    a, b = bulk.snapshot(), single.snapshot()
+    for f in ("p", "i", "left_p", "left_i", "right_p", "right_i"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    torch.testing.assert_close(a.p.cpu(), host.snapshot().p, rtol=0,
+                               atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_tile_sweep_ignores_tf32_on_card():
+    """The tile sweep's product runs in full f32 whatever the caller set:
+    the same bits with TF32 on, the caller's setting restored, and within
+    `corr_tolerance` of the CPU's."""
+    from repro_torch.core.precision import as_precision, corr_tolerance
+
+    _need_card()
+    ts = np.cumsum(np.random.default_rng(22).normal(size=3000))
+    base = matrix_profile(ts, 64, backend="engine", precision="bf16")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        again = matrix_profile(ts, 64, backend="engine", precision="bf16")
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(base.p, again.p) and torch.equal(base.i, again.i)
+    host = matrix_profile(ts, 64, backend="engine", precision="bf16",
+                          device="cpu")
+    c_card = 1.0 - base.p.double().cpu() ** 2 / 128.0
+    c_host = 1.0 - host.p.double() ** 2 / 128.0
+    tol = corr_tolerance(as_precision("bf16"), 64)
+    assert float((c_card - c_host).abs().max()) <= tol

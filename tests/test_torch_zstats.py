@@ -306,3 +306,105 @@ def test_batched_carry_over_and_stacks():
     back = tz.unstack_stats(tz.stack_stats(cross))
     for c, d in zip(cross, back):
         assert torch.equal(c.cov0s, d.cov0s) and torch.equal(c.b.df, d.b.df)
+
+
+# -- the f64 block kernels of the incremental surfaces ---------------------------
+#
+# The same op sequence as `repro/core/zstats.py:404-494` (products and sums,
+# no matmul) in f64, within 1e-12 of the reference's (run under
+# `jax.enable_x64` on the test's side); the port's sums run in a fixed
+# order, so a block's bits do not depend on its shape.
+
+
+def _block_windows(seed, p, q, m, level=0.0):
+    rng = np.random.default_rng(seed)
+    wa = level + np.cumsum(rng.normal(size=(p, m)), axis=1)
+    wb = level + np.cumsum(rng.normal(size=(q, m)), axis=1)
+    wb[1] = 4.0                                 # a flat window: corr 0
+    return wa, wb
+
+
+def _ref_block(fn, *arrays, **kw):
+    with jax.enable_x64(True):
+        out = fn(*(jnp.asarray(a, jnp.float64) for a in arrays), **kw)
+        return jax.tree.map(np.asarray, out)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a), dtype=torch.float64)
+
+
+def _close(port, ref, scale=1.0):
+    np.testing.assert_allclose(port.numpy(), ref, rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("m", [16, 23])
+def test_centered_block_and_sumsq_match_reference(m):
+    wa, _ = _block_windows(1, 7, 5, m, level=10.0)
+    c, n = tz.centered_block(_t(wa))
+    rc, rn = _ref_block(rz.centered_block, wa)
+    _close(c, rc, 10.0)
+    _close(n, rn, float(np.abs(rn).max()))
+    s = tz.window_sumsq(_t(wa))
+    _close(s, _ref_block(rz.window_sumsq, wa), float(s.abs().max()))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("p,q,m", [(6, 9, 16), (1, 13, 12), (4, 4, 7)])
+def test_sqdist_block_matches_reference(normalize, p, q, m):
+    wa, wb = _block_windows(p * q + m, p, q, m)
+    got = tz.sqdist_block(_t(wa), _t(wb), window=m, normalize=normalize)
+    want = _ref_block(rz.sqdist_block_jit, wa, wb, window=m,
+                      normalize=normalize)
+    assert got.shape == (p, q) and got.dtype == torch.float64
+    _close(got, want, max(1.0, float(np.abs(want).max())))
+    same = tz.sqdist_block_jit(_t(wa), _t(wb), window=m, normalize=normalize)
+    assert torch.equal(same, got)
+    if normalize:                    # the flat window correlates with nothing
+        np.testing.assert_allclose(got[:, 1].numpy(), 2.0 * m, rtol=0,
+                                   atol=1e-12)
+
+
+def test_block_parts_match_reference():
+    """The factored parts the fleet keeps resident, and batched blocks."""
+    m = 12
+    wa, wb = _block_windows(5, 3, 8, m)
+    ac, an = _ref_block(rz.centered_block, wa)
+    bc, bn = _ref_block(rz.centered_block, wb)
+    z = tz.sqdist_znorm_from_parts(_t(ac), _t(an), _t(bc), _t(bn), window=m)
+    _close(z, _ref_block(rz.sqdist_znorm_from_parts, ac, an, bc, bn,
+                         window=m), 2.0 * m)
+    sa = _ref_block(rz.window_sumsq, wa)
+    sb = _ref_block(rz.window_sumsq, wb)
+    r = tz.sqdist_nonnorm_from_parts(_t(wa), _t(sa), _t(wb), _t(sb))
+    want = _ref_block(rz.sqdist_nonnorm_from_parts, wa, sa, wb, sb)
+    _close(r, want, float(np.abs(want).max()))
+    stacked = tz.sqdist_block(_t(np.stack([wa, wa + 1.0])),
+                              _t(np.stack([wb, wb])), window=m)
+    assert stacked.shape == (2, 3, 8)
+    assert torch.equal(stacked[0], tz.sqdist_block(_t(wa), _t(wb), window=m))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_sqdist_block_rows_are_shape_independent(normalize):
+    """One row evaluated alone equals the same row of the whole block, bit
+    for bit: each output depends on its own pair of windows only."""
+    m = 20
+    wa, wb = _block_windows(9, 11, 30, m, level=3.0)
+    block = tz.sqdist_block(_t(wa), _t(wb), window=m, normalize=normalize)
+    for r in (0, 5, 10):
+        row = tz.sqdist_block(_t(wa[r:r + 1]), _t(wb), window=m,
+                              normalize=normalize)
+        assert torch.equal(row[0], block[r])
+        col = tz.sqdist_block(_t(wa), _t(wb[r:r + 1]), window=m,
+                              normalize=normalize)
+        assert torch.equal(col[:, 0], block[:, r])
+
+
+def test_window_finite_mask_matches_reference():
+    w = np.arange(40.0).reshape(8, 5)
+    w[2, 3] = np.nan
+    w[6, 0] = np.inf
+    got = tz.window_finite_mask(_t(w)).numpy()
+    np.testing.assert_array_equal(got, _ref_block(rz.window_finite_mask, w))
+    assert got.tolist() == [True, True, False, True, True, True, False, True]
