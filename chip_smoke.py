@@ -75,10 +75,27 @@ Phases, each printing one JSON line:
      profile (3e-3) and 64 f64-oracle rows (1e-6), a 4096-point `query`
      bit for bit `ab_join`, the last 64 points re-appended one at a time
      (bitwise equality reported), ms per append;
- 15. `{"kernels": [...]}`: each ported kernel with its launches on every
-     path (0 on phases 9-14 but the z-normalized streaming query, which
-     plans the NATSA kernel as `ab_join` does), its error against the
-     plain version and its times beside its bound.
+ 15. `main_fleet`: `StreamingFleet` at fleet-10k (10,000 tenants, m=32,
+     exclusion 8, capacity 1024: `TelemetryMonitor`'s 8192-sample history
+     cut 8x), z-normalized and raw: 512 rounds in one `ingest`, then 16
+     one-round ingests timed each (median, max, arrivals/s, peak device
+     memory); 8 sampled tenants bit for bit their `StreamingProfile`
+     replay; a small wraparound fleet (8 tenants, capacity 96, 400 mixed
+     arrivals with NaNs) bit for bit its epoch replay, and its grouped
+     ingest bit for bit the same arrivals one at a time; a bf16 `wk` fleet
+     within `profile_tolerance`; save, restore and rescale of a 256-tenant
+     fleet, each bit for bit;
+ 16. `main_monitor`: `TelemetryMonitor` at its 8192-sample history on a
+     loss-like trace (the raw `scan` alarms within 24 of a planted spike;
+     `motif` names a planted pair through one NATSA launch), and
+     `FleetMonitor` over 256 tenants of the raw fleet-10k fleet filled to
+     capacity: exactly the 4 planted tenants alarm, near their anomalies;
+     the whole fleet is scanned when that fits in ~10 s, and an ungated
+     pass prints the clean tenants' highest z beside the planted lowest;
+ 17. `{"kernels": [...]}`: each ported kernel with its launches on every
+     path (0 on phases 9-15 but the z-normalized streaming query, which
+     plans the NATSA kernel as `ab_join` does, and 1 per monitor `motif`),
+     its error against the plain version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -146,6 +163,24 @@ STREAM_QUERY_N, STREAM_REAPPEND = 4096, 64
 # snapshot vs the batch profile: the reference's own streaming tolerance
 # (tests/test_flash_and_streaming.py:85); vs the f64 oracle: both f64
 STREAM_TOL, STREAM_ORACLE_TOL = 3e-3, 1e-6
+# fleet-10k: the reference's fleet size (benchmarks/run.py:501), the
+# telemetry monitor's window (core/monitor.py:39) and exclusion m // 4;
+# capacity 1024 where the monitor keeps 8192 samples (:41), cut 8x so the
+# prefill fits the script's time
+FLEET_N, FLEET_M, FLEET_EXCL, FLEET_CAP = 10000, 32, 8, 1024
+FLEET_PREFILL, FLEET_TIMED, FLEET_REPLAYS = 512, 16, 8
+FLEET_SMALL_N, FLEET_SMALL_CAP, FLEET_SMALL_ARRIVALS = 8, 96, 400
+FLEET_CKPT_N, FLEET_BF16_N = 256, 1024
+# tenant -> first sample of its planted ramp (0 -> 6 over 32 samples)
+FLEET_PLANTED = {17: 300, 60: 350, 133: 400, 250: 450}
+FLEET_SCAN = 256                        # tenants 0..255, the planted among them
+# the fleet monitor's z-score gate: a 32-sample ramp reads z 6.09-6.39
+# among the 993 windows of a full tenant, the clean tenants' top discords
+# at most 4.35 over tenants 0..255 and 5.149 over all 10,000 (this data,
+# f64 and deterministic; an NVIDIA H100 80GB HBM3 reads what the CPU
+# reads); main_monitor prints both extremes as `gate_margin`
+FLEET_ALARM = 5.3
+MONITOR_HISTORY, MONITOR_M = 8192, 32   # TelemetryMonitor's defaults
 
 
 def emit(obj) -> None:
@@ -1611,6 +1646,351 @@ def phase_streaming() -> dict:
     return out
 
 
+_RESULT_FIELDS = ("p", "i", "left_p", "left_i", "right_p", "right_i")
+
+
+def _results_equal(a, b) -> bool:
+    """Two `ProfileResult`s bit for bit: the merged profile and the split."""
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in _RESULT_FIELDS)
+
+
+def fleet_series() -> np.ndarray:
+    """(FLEET_CAP, FLEET_N) arrivals, row r = round r: per tenant a
+    period-16 cycle at a random phase plus noise (std 0.3) — periodic
+    telemetry — and for the planted tenants a ramp of 0 -> 6 over 32
+    samples (a loss-spike-like excursion). Callers take leading rows and
+    columns, so a tenant's series is the same in every fleet."""
+    rng = np.random.default_rng(SEED + 21)
+    t = np.arange(FLEET_CAP)[:, None]
+    x = (np.sin(2 * np.pi * t / 16 + rng.uniform(0, 2 * np.pi, FLEET_N))
+         + 0.3 * rng.standard_normal((FLEET_CAP, FLEET_N)))
+    for tenant, at in FLEET_PLANTED.items():
+        x[at:at + FLEET_M, tenant] += np.linspace(0.0, 6.0, FLEET_M)
+    return x
+
+
+def _ingest_rounds(fleet, rows: np.ndarray) -> None:
+    """One grouped `ingest` of `rows` (R, n): round r gives tenant t
+    rows[r, t]."""
+    fleet.ingest(np.tile(np.arange(rows.shape[1]), rows.shape[0]),
+                 rows.reshape(-1))
+
+
+def _fleet_wraparound() -> dict:
+    """FLEET_SMALL_N tenants, capacity FLEET_SMALL_CAP, FLEET_SMALL_ARRIVALS
+    skewed arrivals (5% NaN) in 8 mixed batches, both modes: every tenant
+    bit for bit its epoch replay; z-normalized, the same arrivals in one
+    grouped ingest and one at a time give the same bits."""
+    from repro_torch.core.fleet import StreamingFleet
+    from repro_torch.core.replay import EpochReplay
+
+    rng = np.random.default_rng(SEED + 23)
+    n, m, cap = FLEET_SMALL_N, FLEET_M, FLEET_SMALL_CAP
+    share = 1.0 / np.arange(1, n + 1)
+    tids = rng.choice(n, FLEET_SMALL_ARRIVALS, p=share / share.sum())
+    vals = rng.standard_normal(FLEET_SMALL_ARRIVALS)
+    vals[rng.random(FLEET_SMALL_ARRIVALS) < 0.05] = np.nan
+    out = {"n": n, "capacity": cap, "arrivals": FLEET_SMALL_ARRIVALS,
+           "nan_arrivals": int(np.isnan(vals).sum())}
+
+    def fleet(normalize):
+        return StreamingFleet(n, m, cap, exclusion=FLEET_EXCL,
+                              normalize=normalize, device=DEVICE)
+
+    for normalize in (True, False):
+        key = "znorm" if normalize else "raw"
+        f = fleet(normalize)
+        replays = [EpochReplay(m, cap, FLEET_EXCL, normalize, device=DEVICE)
+                   for _ in range(n)]
+        for b in range(0, FLEET_SMALL_ARRIVALS, 50):
+            f.ingest(tids[b:b + 50], vals[b:b + 50])
+        for t, v in zip(tids, vals):
+            replays[t].push(v)
+        epochs = f.epochs
+        check(epochs.max() >= 1, f"{key}: the wraparound case restarted no "
+              "tenant")
+        check(epochs.tolist() == [r.epochs for r in replays],
+              f"{key}: epochs {epochs.tolist()}")
+        equal = all(_results_equal(f.snapshot(t), replays[t].sp.snapshot())
+                    for t in range(n))
+        check(equal, f"{key}: wraparound fleet != its epoch replay")
+        out[key] = {"epochs": epochs.tolist(), "replay_bitwise": equal}
+        if normalize:
+            grouped, single = fleet(True), fleet(True)
+            grouped.ingest(tids, vals)
+            for t, v in zip(tids, vals):
+                single.ingest(t, v)
+            same = all(_results_equal(grouped.snapshot(t), single.snapshot(t))
+                       and _results_equal(grouped.snapshot(t), f.snapshot(t))
+                       for t in range(n))
+            check(same, "grouped ingest != one arrival at a time")
+            out["grouped_vs_single_bitwise"] = same
+    return out
+
+
+def _fleet_checkpoint(x, big) -> dict:
+    """A FLEET_CKPT_N-tenant fleet on the same arrivals as the first
+    tenants of `big` (the same bits: a chunk's size changes none), saved,
+    restored and rescaled on the card, bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.fleet import StreamingFleet
+
+    n, rounds = FLEET_CKPT_N, FLEET_PREFILL + FLEET_TIMED
+    fleet = StreamingFleet(n, FLEET_M, FLEET_CAP, exclusion=FLEET_EXCL,
+                           device=DEVICE)
+    _ingest_rounds(fleet, x[:rounds, :n])
+    want = [fleet.snapshot(t) for t in range(n)]
+    chunk_equal = all(_results_equal(w, big.snapshot(t))
+                      for t, w in enumerate(want))
+    check(chunk_equal, "a tenant's bits depend on the fleet's size")
+    d = os.path.join(ROOT, "build", "fleet_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        path, save_s = _timed(lambda: fleet.save(d))
+        npz_bytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+        (restored, step), restore_s = _timed(
+            lambda: StreamingFleet.restore(d, device=DEVICE))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(step == fleet._ingests and restored.device == fleet.device,
+          "restore")
+    restored_equal = all(_results_equal(restored.snapshot(t), w)
+                         for t, w in enumerate(want))
+    check(restored_equal, "restored snapshots differ")
+    restored.rescale(n + 64)
+    grown_equal = all(_results_equal(restored.snapshot(t), w)
+                      for t, w in enumerate(want))
+    check(grown_equal, "growing changed a surviving tenant")
+    restored.ingest(np.full(2 * FLEET_M, n + 1),
+                    np.random.default_rng(SEED + 25).standard_normal(
+                        2 * FLEET_M))
+    check(restored.snapshot(n + 1).p.shape == (FLEET_M + 1,), "new tenant")
+    restored.rescale(n // 2)
+    shrunk_equal = all(_results_equal(restored.snapshot(t), want[t])
+                       for t in range(n // 2))
+    check(shrunk_equal and restored.n == n // 2,
+          "shrinking changed a surviving tenant")
+    torch.cuda.synchronize()
+    return {"n": n, "npz_bytes": npz_bytes, "save_s": save_s,
+            "restore_s": restore_s, "same_bits_as_fleet_10k": chunk_equal,
+            "restored_bitwise": restored_equal,
+            "grow_survivors_bitwise": grown_equal,
+            "shrink_survivors_bitwise": shrunk_equal}
+
+
+def _fleet_bf16(x, ref) -> dict:
+    """FLEET_BF16_N tenants with a bf16 `wk`, against the same tenants of
+    the f64 fleet `ref`, within the reference's analytic budget."""
+    import torch
+
+    from repro_torch.core.fleet import StreamingFleet
+    from repro_torch.core.precision import PrecisionSpec, profile_tolerance
+
+    n, rounds = FLEET_BF16_N, FLEET_PREFILL + FLEET_TIMED
+    fleet = StreamingFleet(n, FLEET_M, FLEET_CAP, exclusion=FLEET_EXCL,
+                           precision=PrecisionSpec(stream="bfloat16"),
+                           device=DEVICE)
+    _, s = _timed(lambda: _ingest_rounds(fleet, x[:rounds, :n]))
+    check(fleet._state["wk"].dtype == torch.bfloat16, "bf16 wk")
+    got = torch.stack([r.p for r in fleet.snapshot()])
+    want = torch.stack([ref.snapshot(t).p for t in range(n)])
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    check(bool(fin.any()), "no finite entries")
+    err = float((got[fin] - want[fin]).abs().max())
+    tol = profile_tolerance(PrecisionSpec(stream="bfloat16",
+                                          accum="float64"), FLEET_M)
+    check(err <= tol, f"bf16 wk fleet vs f64 {err} > {tol}")
+    return {"n": n, "max_abs_err": err, "tolerance": tol, "ingest_s": s,
+            "wk_bytes": fleet._state["wk"].numel() * 2}
+
+
+def _round_bytes(fleet) -> int:
+    """Bytes one full round must move: every tenant's cached windows,
+    norms and masks read once, and the merged and right profiles (the
+    fields any column may improve) read once and written once."""
+    s = fleet._state
+
+    def nbytes(*fields):
+        return sum(s[f].numel() * s[f].element_size() for f in fields)
+
+    return (nbytes("wk", "aux", "ok")
+            + 2 * nbytes("prof", "pidx", "rprof", "ridx"))
+
+
+def phase_fleet():
+    """`StreamingFleet` at fleet-10k in both modes (see FLEET_*): the
+    prefill in one grouped ingest, 16 timed one-round ingests, sampled
+    tenants bit for bit their `StreamingProfile` replay; then the
+    wraparound, bf16 and checkpoint cases. Returns (the phase's JSON, the
+    raw fleet for `main_monitor`)."""
+    import torch
+
+    from repro_torch.core.fleet import StreamingFleet
+    from repro_torch.core.streaming import StreamingProfile
+
+    x = fleet_series()
+    rounds = FLEET_PREFILL + FLEET_TIMED
+    tids = np.arange(FLEET_N)
+    sampled = np.sort(np.random.default_rng(SEED + 22).choice(
+        FLEET_N, FLEET_REPLAYS, replace=False)).tolist()
+    out = {"phase": "main_fleet", "card": torch.cuda.get_device_name(0),
+           "n": FLEET_N, "m": FLEET_M, "exclusion": FLEET_EXCL,
+           "capacity": FLEET_CAP, "prefill_rounds": FLEET_PREFILL,
+           "timed_rounds": FLEET_TIMED,
+           "reduced": ("capacity 1024 where TelemetryMonitor keeps "
+                       "max_history 8192 (core/monitor.py:41): cut 8x so "
+                       "the prefill fits the script's time")}
+    fleets = {}
+    for normalize in (True, False):
+        key = "znorm" if normalize else "raw"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        fleet = StreamingFleet(FLEET_N, FLEET_M, FLEET_CAP,
+                               exclusion=FLEET_EXCL, normalize=normalize,
+                               device=DEVICE)
+        _, prefill_s = _timed(
+            lambda: _ingest_rounds(fleet, x[:FLEET_PREFILL]))
+        lat = [1e3 * _timed(lambda r=r: fleet.ingest(tids, x[r]))[1]
+               for r in range(FLEET_PREFILL, rounds)]
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+              f"fleet ingest launched a kernel: {counts}")
+        check(bool((fleet.counts == rounds).all()
+                   and (fleet.totals == rounds).all()
+                   and (fleet.epochs == 0).all()), f"{key}: counts")
+        replay_equal = True
+        for t in sampled:
+            sp = StreamingProfile(FLEET_M, FLEET_EXCL, normalize=normalize,
+                                  device=DEVICE)
+            sp.append(x[:rounds, t])
+            snap = fleet.snapshot(t)
+            check(snap.p.shape == (rounds - FLEET_M + 1,)
+                  and snap.p.device.type == DEVICE
+                  and bool(torch.isfinite(snap.p).all()),
+                  f"{key}: snapshot of tenant {t}")
+            replay_equal &= _results_equal(snap, sp.snapshot())
+        check(replay_equal, f"{key}: a sampled tenant != its replay")
+        med = float(np.median(lat))
+        bound_ms = 1e3 * _round_bytes(fleet) / HBM_RATE
+        out[key] = {"counts": counts, "prefill_s": prefill_s,
+                    "prefill_arrivals_per_s": FLEET_N * FLEET_PREFILL
+                    / prefill_s,
+                    "round_ms": {"median": med, "max": float(max(lat)),
+                                 "all": lat},
+                    "arrivals_per_s": FLEET_N / (med / 1e3),
+                    "round_bound_ms": bound_ms,
+                    "round_share_of_bound": bound_ms / med,
+                    "peak_device_bytes": peak,
+                    "state_bytes": sum(t.numel() * t.element_size()
+                                       for t in fleet._state.values()),
+                    "replay_tenants": sampled,
+                    "replay_bitwise": replay_equal}
+        fleets[key] = fleet
+    out["wraparound"] = _fleet_wraparound()
+    out["bf16_wk"] = _fleet_bf16(x, fleets["znorm"])
+    out["checkpoint"] = _fleet_checkpoint(x, fleets["znorm"])
+    emit(out)
+    return out, fleets["raw"], x
+
+
+def _gate_margin(fleet, tenants) -> dict:
+    """Each tenant's top-discord z with no gate (untimed): the highest
+    among clean tenants must sit below FLEET_ALARM and the lowest planted
+    one above it."""
+    from repro_torch.core.monitor import FleetMonitor
+
+    top = {a.tenant: a.zscore for a in FleetMonitor(
+        fleet, zscore_alarm=-np.inf, top_k=1).scan(tenants=tenants)}
+    clean = max(z for t, z in top.items() if t not in FLEET_PLANTED)
+    planted = min(top[t] for t in FLEET_PLANTED)
+    check(clean < FLEET_ALARM <= planted,
+          f"gate {FLEET_ALARM}: clean max z {clean}, planted min z {planted}")
+    return {"tenants": len(tenants), "clean_max_zscore": clean,
+            "planted_min_zscore": planted}
+
+
+def phase_monitor(raw_fleet, x) -> dict:
+    """`TelemetryMonitor` at its 8192-sample history (raw `scan`, then the
+    z-normalized `motif` on the NATSA kernel), and `FleetMonitor` over
+    FLEET_SCAN tenants of the raw fleet-10k fleet once filled to capacity:
+    exactly the planted tenants alarm, within m of their ramps."""
+    import torch
+
+    from repro_torch.core.monitor import FleetMonitor, TelemetryMonitor
+
+    rng = np.random.default_rng(SEED + 24)
+    n, m = MONITOR_HISTORY, MONITOR_M
+    spike, src, dst = 6000, 2000, 4000
+    trace = 2.0 + 0.9 ** np.arange(n) + 0.01 * rng.standard_normal(n)
+    trace[spike:spike + m] += np.linspace(0, 2.0, m)     # loss spike
+    plant(trace, src, dst, m)
+    mon = TelemetryMonitor(window=m, max_history=n, device=DEVICE)
+    mon.extend(trace)
+    reset_counts()
+    hits, scan_s = _timed(lambda: mon.scan(top_k=3))
+    scan_counts = read_counts()
+    check(bool(hits) and min(abs(h.position - spike) for h in hits) < 24,
+          f"telemetry scan missed the spike: {hits}")
+    reset_counts()
+    pair, motif_s = _timed(mon.motif)
+    motif_counts = read_counts()
+    check(set(pair) == {src, dst}, f"motif {pair} != ({src}, {dst})")
+    check(scan_counts["natsa_mp"] == 0 and motif_counts["natsa_mp"] == 1,
+          f"NATSA launches: scan {scan_counts}, motif {motif_counts}")
+    out = {"phase": "main_monitor", "card": torch.cuda.get_device_name(0),
+           "telemetry": {
+               "history": n, "m": m, "spike": spike,
+               "hits": [{"position": h.position, "score": h.score,
+                         "zscore": h.zscore} for h in hits],
+               "motif": list(pair), "planted_pair": [src, dst],
+               "scan_ms": 1e3 * scan_s, "motif_ms": 1e3 * motif_s,
+               "scan_counts": scan_counts, "motif_counts": motif_counts}}
+
+    rounds = FLEET_PREFILL + FLEET_TIMED
+    _, fill_s = _timed(lambda: _ingest_rounds(raw_fleet, x[rounds:]))
+    check(bool((raw_fleet.counts == FLEET_CAP).all()
+               and (raw_fleet.epochs == 0).all()), "fill to capacity")
+    fmon = FleetMonitor(raw_fleet, zscore_alarm=FLEET_ALARM)
+    reset_counts()
+    alerts, fscan_s = _timed(lambda: fmon.scan(tenants=range(FLEET_SCAN)))
+    fcounts = read_counts()
+    alarmed = sorted({a.tenant for a in alerts})
+    check(alarmed == sorted(FLEET_PLANTED),
+          f"alarmed tenants {alarmed} != planted {sorted(FLEET_PLANTED)}")
+    offset = {t: min(abs(a.position - at) for a in alerts if a.tenant == t)
+              for t, at in FLEET_PLANTED.items()}
+    check(max(offset.values()) <= FLEET_M, f"alerts far off: {offset}")
+    ms_per_tenant = 1e3 * fscan_s / FLEET_SCAN
+    fleet_out = {"tenants_scanned": FLEET_SCAN, "zscore_alarm": FLEET_ALARM,
+                 "samples_per_tenant": FLEET_CAP,
+                 "fill_rounds": FLEET_CAP - rounds, "fill_s": fill_s,
+                 "alerts": [{"tenant": a.tenant, "position": a.position,
+                             "zscore": a.zscore} for a in alerts],
+                 "offset_from_ramp": offset, "scan_s": fscan_s,
+                 "ms_per_tenant": ms_per_tenant, "counts": fcounts}
+    whole = ms_per_tenant * FLEET_N / 1e3
+    margin_over = range(FLEET_SCAN)
+    if whole <= 10.0:
+        all_alerts, whole_s = _timed(fmon.scan)
+        fleet_out["whole_fleet_s"] = whole_s
+        fleet_out["whole_fleet_alarmed_tenants"] = len(
+            {a.tenant for a in all_alerts})
+        margin_over = range(FLEET_N)
+    else:
+        fleet_out["whole_fleet_s_extrapolated"] = whole
+    fleet_out["gate_margin"] = _gate_margin(raw_fleet, margin_over)
+    out["fleet"] = fleet_out
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1631,6 +2011,9 @@ def main() -> None:
     nn = phase_nonnorm()
     tl = phase_tile()
     st = phase_streaming()
+    ft, raw_fleet, fleet_x = phase_fleet()
+    mn = phase_monitor(raw_fleet, fleet_x)
+    del raw_fleet
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
                  "batch": bt,
                  "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
@@ -1639,11 +2022,17 @@ def main() -> None:
                  "streaming_append": {"counts": st["znorm"]["counts"]},
                  "streaming_append_raw": {"counts": st["raw"]["counts"]},
                  "streaming_query": {"counts": st["znorm"]["query_counts"]},
-                 "streaming_query_raw": {"counts": st["raw"]["query_counts"]}}
+                 "streaming_query_raw": {"counts": st["raw"]["query_counts"]},
+                 "fleet_ingest": {"counts": ft["znorm"]["counts"]},
+                 "fleet_ingest_raw": {"counts": ft["raw"]["counts"]},
+                 "monitor_scan": {"counts": mn["telemetry"]["scan_counts"]},
+                 "monitor_motif": {"counts": mn["telemetry"]["motif_counts"]},
+                 "fleet_monitor_scan": {"counts": mn["fleet"]["counts"]}}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": s["launches"] + ab["launches"],
+        "launches": (s["launches"] + ab["launches"]
+                     + mn["telemetry"]["motif_counts"]["natsa_mp"]),
         "launches_by_path": {"matrix_profile": s["launches"],
                              "ab_join": ab["launches"],
                              "flash_attention": fl["counts"]["natsa_mp"],

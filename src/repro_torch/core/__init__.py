@@ -2,6 +2,7 @@
 entry points."""
 
 from repro_torch.core import analytics
+from repro_torch.core.fleet import StreamingFleet
 from repro_torch.core.matrix_profile import (
     ProfileState, TopKState, ab_join, batch_ab_join, batch_profile,
     matrix_profile, top_discords, top_motif,
@@ -17,10 +18,11 @@ from repro_torch.core.zstats import (
 )
 
 # The reference's public surface less what is not ported yet:
-# `StreamingFleet` (ROADMAP.md §A5) and `round_executor` (§A6).
+# `round_executor` (ROADMAP.md §A6).
 __all__ = [
     "CrossStats", "DEFAULT_PRECISION", "HarvestSpec", "PrecisionSpec",
-    "ProfileResult", "ProfileState", "SweepPlan", "SweepResult", "TopKState",
+    "ProfileResult", "ProfileState", "StreamingFleet", "SweepPlan",
+    "SweepResult", "TopKState",
     "ZStats", "ab_join", "analytics", "as_precision", "batch_ab_join",
     "batch_profile", "compute_cross_stats_host", "compute_stats",
     "corr_to_dist", "execute", "matrix_profile", "plan_sweep", "self_cross",

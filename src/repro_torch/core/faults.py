@@ -1,0 +1,128 @@
+"""Checkpoint fault primitives — port of the part of `repro.core.faults`
+that `checkpoint.ckpt.save` and `StreamingFleet.save` use (numpy only).
+
+The pieces here are host-side and deterministic, and the same seed gives
+the same schedule and the same flipped bytes as the reference:
+
+  * `FaultInjector` — a SEEDED, fully deterministic schedule of faults
+    (worker crashes per round, transient round failures, kill-mid-checkpoint
+    writes, post-write checkpoint bit-flips). The checkpoint writer consults
+    `on_checkpoint_write` and `after_checkpoint_write`. The round schedule
+    is drawn as the reference draws it, so a seed gives the reference's
+    checkpoint schedule too; the round hooks, `RoundFailure`, `FaultPolicy`
+    and `SupervisedReport` come with the supervised scheduler
+    (ROADMAP.md §A6), their only user.
+  * `flip_bits` — the model of silent disk corruption.
+
+Exceptions: `CheckpointWriteError` marks an interrupted checkpoint write
+(the previous on-disk checkpoint is still intact — atomic rename commit);
+`CheckpointCorruptionError` is raised when a checkpoint fails
+checksum/truncation verification (a restore then falls back to the
+previous good step if one exists).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+class CheckpointWriteError(RuntimeError):
+    """A checkpoint write was interrupted before its atomic commit. The
+    previously committed checkpoint (if any) is intact."""
+
+
+class CheckpointCorruptionError(ValueError):
+    """A checkpoint failed verification on load: truncated archive, missing
+    arrays, checksum mismatch, or an unreadable meta record."""
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    """Deterministic fault schedule, keyed by the supervised loop's tick
+    counter (one tick per scheduling iteration) and a checkpoint serial.
+
+    worker_crashes    tick -> worker slots that crash that round (their
+                      chunk contribution is discarded and replanned)
+    round_failures    tick -> number of consecutive attempts that fail
+                      before the round succeeds
+    checkpoint_kills  checkpoint serials whose write dies before commit
+    checkpoint_flips  checkpoint serials whose committed file gets bit-flips
+                      (silent disk corruption; detected by checksums on
+                      resume)
+    seed              drives the deterministic bit-flip positions
+    """
+
+    worker_crashes: dict = dataclasses.field(default_factory=dict)
+    round_failures: dict = dataclasses.field(default_factory=dict)
+    checkpoint_kills: set = dataclasses.field(default_factory=set)
+    checkpoint_flips: set = dataclasses.field(default_factory=set)
+    seed: int = 0
+
+    @classmethod
+    def seeded(cls, seed: int, *, n_rounds: int, n_workers: int,
+               p_worker_crash: float = 0.0, p_round_failure: float = 0.0,
+               max_round_failures: int = 1, p_checkpoint_kill: float = 0.0,
+               p_checkpoint_flip: float = 0.0,
+               n_checkpoints: int | None = None) -> "FaultInjector":
+        """Build a random-but-reproducible schedule: same seed, same faults.
+        `n_rounds` should upper-bound the ticks the loop will take (retried
+        and replanned rounds consume extra ticks)."""
+        rng = np.random.default_rng(seed)
+        crashes: dict = {}
+        failures: dict = {}
+        for t in range(int(n_rounds)):
+            hit = rng.random(n_workers) < p_worker_crash
+            if hit.any():
+                crashes[t] = set(int(w) for w in np.flatnonzero(hit))
+            if rng.random() < p_round_failure:
+                failures[t] = 1 + int(rng.integers(0, max(
+                    int(max_round_failures), 1)))
+        kills: set = set()
+        flips: set = set()
+        for s in range(int(n_checkpoints if n_checkpoints is not None
+                           else n_rounds)):
+            r = rng.random()
+            if r < p_checkpoint_kill:
+                kills.add(s)
+            elif r < p_checkpoint_kill + p_checkpoint_flip:
+                flips.add(s)
+        return cls(worker_crashes=crashes, round_failures=failures,
+                   checkpoint_kills=kills, checkpoint_flips=flips,
+                   seed=int(seed))
+
+    # -- hooks consulted by the checkpoint writer -------------------------
+
+    def on_checkpoint_write(self, serial: int) -> None:
+        """Called mid-write, before the atomic commit."""
+        if serial in self.checkpoint_kills:
+            raise CheckpointWriteError(
+                f"injected kill during checkpoint write (serial {serial})")
+
+    def after_checkpoint_write(self, serial: int, path: str) -> bool:
+        """Called after a successful commit; corrupts the file in place when
+        scheduled. Returns True if the file was corrupted."""
+        if serial in self.checkpoint_flips:
+            flip_bits(path, seed=self.seed * 1_000_003 + serial)
+            return True
+        return False
+
+
+def flip_bits(path: str, *, seed: int, n_flips: int = 16) -> None:
+    """Flip `n_flips` deterministic bits of the file in place — the chaos
+    harness's model of silent disk corruption. Flips land in the strict
+    interior so the corruption hits array payloads, not just the zip
+    directory at either end."""
+    rng = np.random.default_rng(seed)
+    with open(path, "r+b") as f:
+        f.seek(0, 2)
+        size = f.tell()
+        lo, hi = size // 4, max(size // 4 + 1, 3 * size // 4)
+        for off in rng.integers(lo, hi, size=n_flips):
+            f.seek(int(off))
+            b = f.read(1)
+            if not b:
+                continue
+            f.seek(int(off))
+            f.write(bytes([b[0] ^ (1 << int(rng.integers(0, 8)))]))

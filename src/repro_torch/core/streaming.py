@@ -239,9 +239,7 @@ class StreamingProfile:
         returns tensors of its own: later appends never change a snapshot
         already taken."""
         from repro_torch.core.result import ProfileResult
-
-        def _d(a):
-            return torch.sqrt(torch.clamp(a, min=0.0))
+        from repro_torch.core.zstats import sqdist_to_dist as _d
 
         return ProfileResult(
             p=_d(self._profile), i=self._index.clone(),

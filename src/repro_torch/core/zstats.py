@@ -370,6 +370,17 @@ def dist_to_corr(dist: torch.Tensor, window: int) -> torch.Tensor:
 # overwritten and never compared.
 
 
+def sqdist_to_dist(d2: torch.Tensor) -> torch.Tensor:
+    """Squared distances -> distances (negatives clamped to 0), with a
+    correctly rounded f64 sqrt on every device: CUDA's is, torch's CPU
+    kernel is not (an ulp off for ~0.7% of values on an AVX-512 build), so
+    the host goes through numpy's, as the reference's snapshots do."""
+    d2 = torch.clamp(d2, min=0.0)
+    if d2.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(d2.numpy()))
+    return torch.sqrt(d2)
+
+
 def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis in a fixed order: halves added pairwise, an
     odd length's last element carried to the next level."""

@@ -20,7 +20,6 @@ from repro_torch.core.result import HarvestSpec, ProfileResult
 
 # reference names the port does not export yet -> the item that brings them
 NOT_PORTED = {
-    "StreamingFleet": "ROADMAP.md §A5 (fleet, monitor, checkpoints)",
     "round_executor": "ROADMAP.md §A6 (distributed rounds)",
 }
 
@@ -80,3 +79,41 @@ def test_only_distributed_plans_are_refused():
     assert set(plan._NOT_PORTED) == {"distributed"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md §A6"):
         plan.plan_sweep(16, 300, backend="distributed", device="cpu")
+
+
+def test_fleet_monitor_checkpoint_and_fault_surfaces_match_reference():
+    """The reference's signatures and fields, plus a keyword-only `device`
+    on the fleet's constructor and restore and on `TelemetryMonitor`."""
+    from repro.checkpoint import ckpt as rckpt
+    from repro.core import faults as rfaults
+    from repro.core import monitor as rmonitor
+    from repro.core.fleet import StreamingFleet as RefFleet
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import faults, monitor
+
+    def params(fn):
+        return list(inspect.signature(fn).parameters)
+
+    fleet = tcore.StreamingFleet
+    assert params(fleet.__init__) == params(RefFleet.__init__) + ["device"]
+    assert params(fleet.restore) == params(RefFleet.restore) + ["device"]
+    for name in ("ingest", "snapshot", "save", "rescale"):
+        assert params(getattr(fleet, name)) == params(getattr(RefFleet, name))
+    for name in ("counts", "totals", "epochs"):
+        assert isinstance(getattr(fleet, name), property), name
+    for name in ("Discord", "FleetAlert", "FleetMonitor"):
+        assert (_fields(getattr(monitor, name))
+                == _fields(getattr(rmonitor, name))), name
+    ref_fields = _fields(rmonitor.TelemetryMonitor)
+    assert _fields(monitor.TelemetryMonitor) == (
+        ref_fields[:-1] + ["device"] + ref_fields[-1:])
+    assert ckpt.FORMAT == rckpt.FORMAT
+    for name in ("save", "restore", "all_steps", "latest_step"):
+        assert params(getattr(ckpt, name)) == params(getattr(rckpt, name))
+    for name in ("CheckpointWriteError", "CheckpointCorruptionError",
+                 "FaultInjector", "flip_bits"):
+        assert hasattr(faults, name) and hasattr(rfaults, name), name
+    assert _fields(faults.FaultInjector) == _fields(rfaults.FaultInjector)
+    # the supervised scheduler's pieces come with it (ROADMAP.md §A6)
+    for name in ("RoundFailure", "FaultPolicy", "SupervisedReport"):
+        assert hasattr(rfaults, name) and not hasattr(faults, name), name
