@@ -92,10 +92,23 @@ Phases, each printing one JSON line:
      capacity: exactly the 4 planted tenants alarm, near their anomalies;
      the whole fleet is scanned when that fits in ~10 s, and an ungated
      pass prints the clean tenants' highest z beside the planted lowest;
- 17. `{"kernels": [...]}`: each ported kernel with its launches on every
+ 17. `main_serve`: `ProfileService` over a resident `ShardedCorpus` of 64
+     series of 65536 samples (m=128, 2 logical shards), 16 concurrent
+     queries of 4096 samples at k = 1: one NATSA launch per (query, series)
+     pair (1024), the planted window named by series and position, 4
+     answers bit for bit the per-pair `ab_join` loop, 64 sampled rows of 2
+     answers against the f64 exact union; load, serve, query prep,
+     assembly and kernel times apart; the kernel at the serve shape against
+     its plain version. k = 4 (4 series of 16384, 2 queries of 512) on the
+     per-pair rowstream plan bit for bit the per-pair top-k union, no
+     NATSA launch; a seeded `FaultInjector` run (a crashed shard degrades to
+     coverage 0.5 bit for bit the survivors' union, a transient failure
+     retries to ok, a lapsed deadline answers expired);
+ 18. `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
-     plans the NATSA kernel as `ab_join` does, and 1 per monitor `motif`),
-     its error against the plain version and its times beside its bound.
+     plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
+     per k = 1 serve pair), its error against the plain version and its
+     times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -103,6 +116,7 @@ raises and the script exits non-zero without it. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -181,6 +195,28 @@ FLEET_SCAN = 256                        # tenants 0..255, the planted among them
 # reads); main_monitor prints both extremes as `gate_margin`
 FLEET_ALARM = 5.3
 MONITOR_HISTORY, MONITOR_M = 8192, 32   # TelemetryMonitor's defaults
+# the profile service (src/repro/serve): 64 resident series and 16
+# concurrent queries are the reference's serve benchmark
+# (benchmarks/run.py:724-740, bench_serve), 2 logical shards; m = 128 is
+# epilepsy-128k's (configs/natsa.py:16). The series length (65536) and the
+# query length (4096 samples, 3969 subsequences) have no source in the
+# repo: bench_serve's 384 and 192 at m = 64 are sized for a CPU run, and
+# these are chosen so the card sweeps a corpus of real size (4.3 GB of
+# resident f64 windows), with queries as long as the AB rowstream's row
+# ceiling (ROWSTREAM_LQ), which a k > 1 query of this length would run on
+SERVE_SERIES, SERVE_N, SERVE_M, SERVE_SHARDS = 64, 65536, 128, 2
+SERVE_QUERIES, SERVE_QUERY_N = 16, 4096
+SERVE_BITWISE, SERVE_ORACLE = 4, 2      # answers held to the loop / oracle
+# query 0's window SERVE_PLANT[2] copies series SERVE_PLANT[0]'s window at
+# SERVE_PLANT[1]
+SERVE_PLANT = (37, 40000, 1000)
+# k = 4 on the per-pair rowstream plan: 4 series of 16384, 2 queries of 512
+SERVE_K, SERVE_K_SERIES, SERVE_K_N, SERVE_K_QUERIES, SERVE_K_QUERY_N = (
+    4, 4, 16384, 2, 512)
+# FaultInjector.seeded(36, n_rounds=4, n_workers=2, p_worker_crash=0.3,
+# p_round_failure=0.3, max_round_failures=2): shard 0 crashes at tick 0,
+# tick 2 (shard 0 again) fails once and retries
+SERVE_FAULT_SEED = 36
 
 
 def emit(obj) -> None:
@@ -1991,6 +2027,294 @@ def phase_monitor(raw_fleet, x) -> dict:
     return out
 
 
+def _pair_union(q, series, m, sids=None) -> tuple:
+    """The per-pair loop the service must equal bit for bit: `ab_join` of
+    q against each series (ascending sid) on the card, reduced on the host
+    by an elementwise min -> (dist, series, position)."""
+    from repro_torch.core import ab_join
+
+    lq = q.shape[0] - m + 1
+    best_d = np.full(lq, np.inf, np.float32)
+    best_s = np.full(lq, -1, np.int64)
+    best_i = np.full(lq, -1, np.int64)
+    for sid in (range(len(series)) if sids is None else sids):
+        r = ab_join(q, series[sid], m, device=DEVICE)
+        d, i = r.p.cpu().numpy(), r.i.cpu().numpy()
+        take = d < best_d
+        best_d = np.where(take, d, best_d)
+        best_s = np.where(take, sid, best_s)
+        best_i = np.where(take, i, best_i)
+    return best_d, best_s, best_i
+
+
+def _answer_equals(a, union) -> bool:
+    d, s, i = union
+    return bool(np.array_equal(a.result.p.numpy(), d)
+                and np.array_equal(a.series, s)
+                and np.array_equal(a.result.i.numpy(), i))
+
+
+def _topk_pair_union(q, series, m, k) -> tuple:
+    """k > 1: a stable sort over every series' per-pair `ab_join` top-k
+    (ascending sid) -> (dist, position, series), each (l_q, k)."""
+    from repro_torch.core import ab_join
+
+    cands = []
+    for sid, s in enumerate(series):
+        r = ab_join(q, s, m, k=k, device=DEVICE)
+        check(r.backend == "rowstream", f"per-pair top-k on {r.backend}")
+        cands.append((r.topk_p.cpu().numpy(), r.topk_i.cpu().numpy(),
+                      np.full(tuple(r.topk_i.shape), sid)))
+    d, i, s = (np.concatenate(c, axis=1) for c in zip(*cands))
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return tuple(np.take_along_axis(x, order, 1) for x in (d, i, s))
+
+
+def _union_oracle(answer, q, series, m, rows) -> dict:
+    """The served profile at `rows` against the f64 exact union over every
+    corpus series, on the card: correlations within TOL_ORACLE; where the
+    winning (series, position) differs, the reported correlations must be
+    within TOL_ORACLE (ties) and the served pick's own exact correlation
+    within TOL_ORACLE of the oracle's (exact pairs)."""
+    import torch
+
+    from repro_torch.core import ref
+    from repro_torch.core.zstats import dist_to_corr
+
+    dev = torch.device(DEVICE)
+    qt = torch.from_numpy(q).to(dev)
+    best = None
+    for sid, s in enumerate(series):
+        d, j = ref.profile_rows(qt, torch.from_numpy(s).to(dev), m, rows)
+        if best is None:
+            best = [d, torch.zeros_like(j), j]
+        else:
+            take = d < best[0]
+            best = [torch.where(take, d, best[0]),
+                    torch.where(take, sid, best[1]),
+                    torch.where(take, j, best[2])]
+    at = torch.as_tensor(rows)
+    got_c = dist_to_corr(answer.result.p[at].double().to(dev), m)
+    got_s = torch.from_numpy(answer.series)[at].to(dev).long()
+    got_j = answer.result.i[at].to(dev).long()
+    want_c = dist_to_corr(best[0], m)
+    check(bool(torch.isfinite(got_c).all()), "served rows non-finite")
+    err = (got_c - want_c).abs()
+    differ = (got_s != best[1]) | (got_j != best[2])
+    exact_viol = 0
+    for r in differ.nonzero().flatten().tolist():
+        own = _exact_corr(q, series[int(got_s[r])], m,
+                          torch.as_tensor([int(rows[r])], device=dev),
+                          got_j[r:r + 1])
+        exact_viol += int(float((own - want_c[r]).abs()) >= TOL_ORACLE)
+    return {"rows": len(rows), "max_corr_err": float(err.max()),
+            "pick_mismatch": int(differ.sum()),
+            "tie_violations": int((differ & (err >= TOL_ORACLE)).sum()),
+            "exact_pair_violations": exact_viol}
+
+
+def _serve_parts(corpus, queries, m) -> dict:
+    """The k = 1 serve path's parts timed apart, on the same corpus and
+    queries: the queries' host stream prep, the host assembly of every
+    pair (f64 seed dots, f32 emission, upload), and the NATSA kernel alone
+    over every pair (CUDA events, on inputs padded beforehand)."""
+    from repro_torch.core.zstats import compute_stats_host
+    from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, natsa_mp, ops
+
+    parts, prep_s = _timed(lambda: [
+        compute_stats_host(q, m, min_subsequences=1,
+                           return_centered_windows=True, device=DEVICE)
+        for q in queries])
+    lq = queries[0].shape[0] - m + 1
+    plans = [(g, corpus.plan_for(g, lq)) for g in corpus.groups()]
+    pairs, assembly_s = _timed(lambda: [
+        p for g, plan in plans for p in corpus.assemble_pairs(g, parts,
+                                                              plan)])
+    launches = []
+    for cross in pairs:
+        (s0, s1), = ops.ab_spans(cross.l_a, cross.l_b, 0)
+        *args, _, _, jpad = ops._pad_streams_ab(cross, DEFAULT_IT,
+                                                DEFAULT_DT, s0, s1)
+        launches.append((args, dict(k_start=s0, k_end=s1, l_i=cross.l_a,
+                                    l_j=cross.l_b, jpad=jpad)))
+    del pairs
+
+    def every_pair():
+        for args, kw in launches:
+            natsa_mp.rowmax_profile_ab(*args, **kw)
+
+    every_pair()                                       # warm-up
+    kernel_ms = cuda_ms(every_pair, 1)
+    return {"query_prep_s": prep_s, "assembly_s": assembly_s,
+            "kernel_ms": kernel_ms,
+            "kernel_ms_per_pair": kernel_ms / len(launches),
+            "timed_pairs": len(launches)}
+
+
+def _serve_faults(series, queries, m) -> dict:
+    """A seeded `FaultInjector` over the k = 4 cell's corpus at k = 1:
+    shard 0 crashes at tick 0 (query 0: degraded, coverage 0.5, bit for bit
+    the union over shard 1's series), tick 2 fails once and retries (query
+    1: ok); a lapsed deadline answers expired."""
+    from repro_torch.core.faults import FaultInjector, FaultPolicy
+    from repro_torch.serve import ProfileService, ShardedCorpus
+
+    inj = FaultInjector.seeded(SERVE_FAULT_SEED, n_rounds=4, n_workers=2,
+                               p_worker_crash=0.3, p_round_failure=0.3,
+                               max_round_failures=2)
+    check(inj.crashed_workers(0) == {0} and inj.round_failures == {2: 1}
+          and not any(inj.crashed_workers(t) for t in (1, 2, 3)),
+          f"fault schedule of seed {SERVE_FAULT_SEED}: {inj}")
+    corpus = ShardedCorpus(series, m, devices=[DEVICE],
+                           n_shards=SERVE_SHARDS)
+    sleeps = []
+    svc = ProfileService(corpus, injector=inj,
+                         policy=FaultPolicy(sleep=sleeps.append))
+    [crashed] = svc.serve(queries[:1])
+    survivors = [sid for sid in range(len(series))
+                 if corpus.shard_of(sid) != 0]
+    crashed_equal = _answer_equals(crashed, _pair_union(
+        queries[0], series, m, sids=survivors))
+    check(crashed.status == "degraded" and crashed.coverage == 0.5
+          and crashed.failed_shards == (0,) and crashed_equal,
+          f"crashed shard: {crashed.status} {crashed.coverage} "
+          f"{crashed.failed_shards} bitwise {crashed_equal}")
+    [retried] = svc.serve(queries[1:2])
+    retried_equal = _answer_equals(retried, _pair_union(queries[1], series,
+                                                        m))
+    check(retried.status == "ok" and retried.coverage == 1.0
+          and len(sleeps) == 1 and retried_equal,
+          f"transient failure: {retried.status} sleeps {sleeps} "
+          f"bitwise {retried_equal}")
+    qid = svc.submit(queries[0], deadline=0.0)
+    time.sleep(0.005)
+    expired = {a.qid: a for a in svc.step() + svc.drain()}[qid]
+    check(expired.status == "expired" and expired.coverage == 0.0
+          and bool(expired.result.p.isinf().all()),
+          f"lapsed deadline: {expired.status}")
+    return {"seed": SERVE_FAULT_SEED, "crashed": {
+        "status": crashed.status, "coverage": crashed.coverage,
+        "failed_shards": list(crashed.failed_shards),
+        "bitwise_survivor_union": crashed_equal},
+        "retried": {"status": retried.status, "backoff_s": sleeps,
+                    "bitwise_pair_union": retried_equal},
+        "expired": expired.status, "stats": dataclasses.asdict(svc.stats)}
+
+
+def phase_serve() -> dict:
+    """`ProfileService` over a resident `ShardedCorpus` on the card. k = 1
+    at full size (64 series of 65536, m = 128, 2 logical shards, 16
+    queries of 4096 samples): one NATSA launch per (query, series) pair,
+    the planted window found, 4 answers bit for bit the per-pair `ab_join`
+    loop, 64 sampled rows of 2 answers against the f64 exact union; the
+    parts timed apart; the kernel at the serve shape against its plain
+    version. k = 4 on the per-pair rowstream plan bit for bit the per-pair
+    top-k union. A seeded fault run."""
+    import torch
+
+    from repro_torch.core.zstats import dist_to_corr
+    from repro_torch.serve import ProfileService, ShardedCorpus
+
+    rng = np.random.default_rng(SEED + 26)
+    m = SERVE_M
+    series = [walk(rng, SERVE_N) for _ in range(SERVE_SERIES)]
+    queries = [walk(rng, SERVE_QUERY_N) for _ in range(SERVE_QUERIES)]
+    p_sid, p_at, q_at = SERVE_PLANT
+    plant(queries[0], p_at, q_at, m, other=series[p_sid])
+    lq, l_ref = SERVE_QUERY_N - m + 1, SERVE_N - m + 1
+
+    torch.cuda.reset_peak_memory_stats()
+    corpus, load_s = _timed(lambda: ShardedCorpus(
+        series, m, devices=[DEVICE], n_shards=SERVE_SHARDS))
+    svc = ProfileService(corpus, max_pending=SERVE_QUERIES,
+                         max_batch=SERVE_QUERIES)
+    reset_counts()
+    answers, serve_s = _timed(lambda: svc.serve(queries))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pairs = SERVE_QUERIES * SERVE_SERIES
+    check(counts["natsa_mp"] == pairs and counts["flash_attn"] == 0,
+          f"serve launches {counts}, want {pairs} NATSA")
+    for a in answers:
+        check(a.status == "ok" and a.coverage == 1.0
+              and tuple(a.result.p.shape) == (lq,)
+              and a.result.p.dtype == torch.float32
+              and bool(torch.isfinite(a.result.p).all())
+              and a.series.shape == (lq,), f"answer {a.qid}: {a.status}")
+    a0 = answers[0]
+    found = (int(a0.series[q_at]), int(a0.result.i[q_at]))
+    planted_corr = float(dist_to_corr(a0.result.p[q_at].double(), m))
+    check(found == (p_sid, p_at) and planted_corr >= 1 - TOL_ORACLE,
+          f"planted window: series/position {found} != {(p_sid, p_at)}, "
+          f"corr {planted_corr}")
+    bitwise = [_answer_equals(a, _pair_union(q, series, m))
+               for q, a in zip(queries[:SERVE_BITWISE],
+                               answers[:SERVE_BITWISE])]
+    check(all(bitwise), f"answers vs the per-pair ab_join loop: {bitwise}")
+    orng = np.random.default_rng(SEED + 27)
+    oracle = [_union_oracle(a, q, series, m, np.sort(orng.choice(
+        lq, SAMPLED_ROWS, replace=False)))
+        for q, a in zip(queries[:SERVE_ORACLE], answers[:SERVE_ORACLE])]
+    for o in oracle:
+        check(o["max_corr_err"] <= TOL_ORACLE and o["tie_violations"] == 0
+              and o["exact_pair_violations"] == 0,
+              f"served rows vs the f64 exact union: {o}")
+
+    parts = _serve_parts(corpus, queries, m)
+    (args, kw), = _ab_cases(queries[0], series[p_sid], m, 0, device=DEVICE)
+    kt = _time_kernel(args, kw, float(lq) * l_ref, queries[0], series[p_sid],
+                      m)
+    out = {"phase": "main_serve", "card": torch.cuda.get_device_name(0),
+           "series": SERVE_SERIES, "n": SERVE_N, "m": m,
+           "shards": corpus.n_shards, "queries": SERVE_QUERIES,
+           "query_n": SERVE_QUERY_N, "pairs": pairs, "reduced": [],
+           "shape_source": "series and queries: benchmarks/run.py:724-740; "
+                           "n and query_n: chosen here, unsourced",
+           "launches": counts["natsa_mp"], "counts": counts,
+           "load_s": load_s, "serve_s": serve_s, "qps": SERVE_QUERIES
+           / serve_s, **parts, "peak_device_bytes": peak,
+           "planted": {"series": p_sid, "position": p_at, "row": q_at,
+                       "corr": planted_corr},
+           "bitwise_pair_loop": bitwise, "union_oracle": oracle,
+           "bound_ms_all_pairs": kt["bound_ms"] * pairs,
+           "kernel": {f: kt[f] for f in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "cells",
+               "share_of_bound", "bitwise_repeat", "full_size_vs_plain")}}
+    del corpus, svc, answers
+
+    krng = np.random.default_rng(SEED + 28)
+    series4 = [walk(krng, SERVE_K_N) for _ in range(SERVE_K_SERIES)]
+    queries4 = [walk(krng, SERVE_K_QUERY_N) for _ in range(SERVE_K_QUERIES)]
+    svc4 = ProfileService(ShardedCorpus(series4, m, devices=[DEVICE],
+                                        n_shards=SERVE_SHARDS))
+    reset_counts()
+    answers4, k4_s = _timed(lambda: svc4.serve(queries4, k=SERVE_K))
+    counts4 = read_counts()
+    check(counts4["natsa_mp"] == 0 and counts4["flash_attn"] == 0,
+          f"k = {SERVE_K} serve launched a kernel: {counts4}")
+    k4_equal = []
+    for q, a in zip(queries4, answers4):
+        d, i, s = _topk_pair_union(q, series4, m, SERVE_K)
+        k4_equal.append(bool(
+            a.status == "ok"
+            and np.array_equal(a.result.topk_p.numpy(), d)
+            and np.array_equal(a.result.topk_i.numpy(), i)
+            and np.array_equal(a.series, s)))
+    check(all(k4_equal), f"k = {SERVE_K} answers vs the per-pair union: "
+          f"{k4_equal}")
+    group = svc4.corpus.groups()[0]
+    backend4 = svc4.corpus.plan_for(group, SERVE_K_QUERY_N - m + 1,
+                                    k=SERVE_K).backend
+    check(backend4 == "rowstream", f"k = {SERVE_K} plan on {backend4}")
+    out["k4"] = {"series": SERVE_K_SERIES, "n": SERVE_K_N,
+                 "queries": SERVE_K_QUERIES, "query_n": SERVE_K_QUERY_N,
+                 "k": SERVE_K, "backend": backend4, "serve_s": k4_s,
+                 "counts": counts4, "bitwise_pair_union": k4_equal}
+    out["faults"] = _serve_faults(series4, queries4, m)
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2014,6 +2338,7 @@ def main() -> None:
     ft, raw_fleet, fleet_x = phase_fleet()
     mn = phase_monitor(raw_fleet, fleet_x)
     del raw_fleet
+    sv = phase_serve()
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
                  "batch": bt,
                  "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
@@ -2027,12 +2352,14 @@ def main() -> None:
                  "fleet_ingest_raw": {"counts": ft["raw"]["counts"]},
                  "monitor_scan": {"counts": mn["telemetry"]["scan_counts"]},
                  "monitor_motif": {"counts": mn["telemetry"]["motif_counts"]},
-                 "fleet_monitor_scan": {"counts": mn["fleet"]["counts"]}}
+                 "fleet_monitor_scan": {"counts": mn["fleet"]["counts"]},
+                 "serve": sv, "serve_topk": sv["k4"]}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (s["launches"] + ab["launches"]
-                     + mn["telemetry"]["motif_counts"]["natsa_mp"]),
+                     + mn["telemetry"]["motif_counts"]["natsa_mp"]
+                     + sv["counts"]["natsa_mp"]),
         "launches_by_path": {"matrix_profile": s["launches"],
                              "ab_join": ab["launches"],
                              "flash_attention": fl["counts"]["natsa_mp"],
@@ -2045,6 +2372,13 @@ def main() -> None:
         "ab": {"ms": ab["ms"], "plain_ms": ab["plain_ms"],
                "bound_ms": ab["bound_ms"], "bound_by": ab["bound_by"],
                "shape": f"ab n_a={AB_NA} n_b={AB_NB} m={AB_M}"},
+        "serve": {**{f: sv["kernel"][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+            "launches": sv["counts"]["natsa_mp"],
+            "ms_all_pairs": sv["kernel_ms"],
+            "bound_ms_all_pairs": sv["bound_ms_all_pairs"],
+            "shape": (f"ab n_a={SERVE_QUERY_N} n_b={SERVE_N} m={SERVE_M}, "
+                      f"{sv['pairs']} pairs")},
     }, {
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,

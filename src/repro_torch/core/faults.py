@@ -1,21 +1,28 @@
-"""Checkpoint fault primitives — port of the part of `repro.core.faults`
-that `checkpoint.ckpt.save` and `StreamingFleet.save` use (numpy only).
+"""Fault primitives — port of the part of `repro.core.faults` that the
+checkpoint writers (`checkpoint.ckpt.save`, `StreamingFleet.save`) and the
+profile service (`serve.ProfileService`) use (numpy only).
 
 The pieces here are host-side and deterministic, and the same seed gives
 the same schedule and the same flipped bytes as the reference:
 
+  * `FaultPolicy` — the retry budget and exponential backoff of a failed
+    round (the profile service retries a shard group's dispatch under it).
+    The reference's policy also carries the supervised scheduler's knobs
+    (`worker_failure_threshold`, `min_workers`, `checkpoint_every`,
+    `degrade_gracefully`); they come with that scheduler (ROADMAP.md §A6),
+    their only reader;
   * `FaultInjector` — a SEEDED, fully deterministic schedule of faults
     (worker crashes per round, transient round failures, kill-mid-checkpoint
-    writes, post-write checkpoint bit-flips). The checkpoint writer consults
-    `on_checkpoint_write` and `after_checkpoint_write`. The round schedule
-    is drawn as the reference draws it, so a seed gives the reference's
-    checkpoint schedule too; the round hooks, `RoundFailure`, `FaultPolicy`
-    and `SupervisedReport` come with the supervised scheduler
-    (ROADMAP.md §A6), their only user.
+    writes, post-write checkpoint bit-flips). The profile service consults
+    the round hooks `crashed_workers` and `round_should_fail` once per
+    shard-group tick; the checkpoint writer consults `on_checkpoint_write`
+    and `after_checkpoint_write`. `SupervisedReport` comes with the
+    supervised scheduler (ROADMAP.md §A6);
   * `flip_bits` — the model of silent disk corruption.
 
-Exceptions: `CheckpointWriteError` marks an interrupted checkpoint write
-(the previous on-disk checkpoint is still intact — atomic rename commit);
+Exceptions: `RoundFailure` is the retryable dispatch failure;
+`CheckpointWriteError` marks an interrupted checkpoint write (the previous
+on-disk checkpoint is still intact — atomic rename commit);
 `CheckpointCorruptionError` is raised when a checkpoint fails
 checksum/truncation verification (a restore then falls back to the
 previous good step if one exists).
@@ -24,8 +31,15 @@ previous good step if one exists).
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Callable
 
 import numpy as np
+
+
+class RoundFailure(RuntimeError):
+    """A round dispatch failed (injected or real). Retryable: the running
+    profile state is untouched — the round simply was not committed."""
 
 
 class CheckpointWriteError(RuntimeError):
@@ -38,15 +52,37 @@ class CheckpointCorruptionError(ValueError):
     arrays, checksum mismatch, or an unreadable meta record."""
 
 
+@dataclasses.dataclass(frozen=True)
+class FaultPolicy:
+    """Retry knobs, with the reference's defaults.
+
+    max_retries              retries per round before giving up on it
+    backoff_base/backoff_max exponential backoff (seconds) between retries:
+                             delay = min(base * 2**(attempt-1), max)
+    sleep                    injectable clock (tests pass a no-op)
+    """
+
+    max_retries: int = 3
+    backoff_base: float = 0.05
+    backoff_max: float = 2.0
+    sleep: Callable[[float], None] = dataclasses.field(default=time.sleep)
+
+    def backoff(self, attempt: int) -> float:
+        """Delay before retry `attempt` (1-based)."""
+        return min(self.backoff_base * (2.0 ** max(attempt - 1, 0)),
+                   self.backoff_max)
+
+
 @dataclasses.dataclass
 class FaultInjector:
-    """Deterministic fault schedule, keyed by the supervised loop's tick
-    counter (one tick per scheduling iteration) and a checkpoint serial.
+    """Deterministic fault schedule, keyed by a tick counter (one tick per
+    round: a scheduling iteration, or a shard-group dispatch of the profile
+    service) and a checkpoint serial.
 
     worker_crashes    tick -> worker slots that crash that round (their
                       chunk contribution is discarded and replanned)
-    round_failures    tick -> number of consecutive attempts that fail
-                      before the round succeeds
+    round_failures    tick -> number of consecutive attempts that fail with
+                      `RoundFailure` before the round succeeds
     checkpoint_kills  checkpoint serials whose write dies before commit
     checkpoint_flips  checkpoint serials whose committed file gets bit-flips
                       (silent disk corruption; detected by checksums on
@@ -91,6 +127,16 @@ class FaultInjector:
         return cls(worker_crashes=crashes, round_failures=failures,
                    checkpoint_kills=kills, checkpoint_flips=flips,
                    seed=int(seed))
+
+    # -- round hooks, consulted once per tick -----------------------------
+
+    def crashed_workers(self, tick: int) -> set:
+        return set(self.worker_crashes.get(tick, ()))
+
+    def round_should_fail(self, tick: int, attempt: int) -> bool:
+        """True while `attempt` (0-based) is below the scheduled failure
+        count for this tick — retry `attempt = count` then succeeds."""
+        return attempt < int(self.round_failures.get(tick, 0))
 
     # -- hooks consulted by the checkpoint writer -------------------------
 

@@ -2,9 +2,10 @@
 
 A query-against-corpus join has an asymmetric cost: the corpus side's
 streams and centered windows do not change between queries, the query side
-changes every call. `StreamingProfile.query` (a growing monitored series
-queried between appends) keeps its corpus resident through this cache,
-in three layers:
+changes every call. Two subsystems keep a corpus resident through this
+cache — `StreamingProfile.query` (a growing monitored series queried
+between appends) and `serve.ShardedCorpus` (N series loaded once behind
+the profile service) — in three layers:
 
   * a `ResidentSide`: the corpus's host-f64 `ZStats` (on the device) and
     centered-window matrix (z-normalized mode), or its f32 series (raw
@@ -93,6 +94,7 @@ class ReferenceCache:
     def side(self, key, build: Callable[[], ResidentSide]) -> ResidentSide:
         """The resident side for `key` — any hashable that changes whenever
         the content may have (`StreamingProfile` keys `(generation,
+        normalize)`; `ShardedCorpus` keys `(series_id, generation,
         normalize)`) — built and LRU-evicting on a miss. `build` must
         return a side of this cache's window."""
         side = self._sides.get(key)
@@ -108,19 +110,21 @@ class ReferenceCache:
             self._sides.move_to_end(key)
         return side
 
-    def plan_for(self, side: ResidentSide, l_q: int):
+    def plan_for(self, side: ResidentSide, l_q: int, *, k: int = 1):
         """The plan of an AB row-harvest sweep of an l_q-subsequence query
-        against the resident side, no exclusion (different series). Plans
-        depend on GEOMETRY only — (corpus l, normalize, query l) — so
-        sides of equal length share one entry."""
+        against the resident side, no exclusion (different series), as
+        `ab_join` resolves it (a k = 1 z-normalized query runs the NATSA
+        kernel). Plans depend on GEOMETRY only — (corpus l, normalize,
+        query l, k) — so sides of equal length share one entry (a 64-series
+        equal-length corpus plans once, not 64 times)."""
         from repro_torch.core import plan as plan_mod
 
-        key = (side.l, side.normalize, int(l_q))
+        key = (side.l, side.normalize, int(l_q), int(k))
         plan = self._plans.get(key)
         if plan is None:
             plan = plan_mod.plan_sweep(
                 self.window, int(l_q), side.l, exclusion=0,
-                normalize=side.normalize, harvest="row",
+                normalize=side.normalize, harvest="row", k=k,
                 device=self.device)
             self._plans[key] = plan
             while len(self._plans) > self.plan_max:

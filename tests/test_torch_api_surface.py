@@ -2,8 +2,8 @@
 (`tests/test_api_surface.py`): `repro_torch.core.__all__` is the
 reference's less what is not ported yet, each missing name with the
 ROADMAP.md item that brings it; the `ProfileResult`, `HarvestSpec`,
-`PrecisionSpec` and analytics surfaces are the reference's; `SweepPlan`'s
-fields are the reference's with `interpret` as `device`.
+`PrecisionSpec`, analytics and `serve` surfaces are the reference's;
+`SweepPlan`'s fields are the reference's with `interpret` as `device`.
 """
 
 import dataclasses
@@ -22,6 +22,12 @@ from repro_torch.core.result import HarvestSpec, ProfileResult
 NOT_PORTED = {
     "round_executor": "ROADMAP.md §A6 (distributed rounds)",
 }
+
+
+# `repro.core.faults.FaultPolicy`'s supervised-scheduler knobs, read only by
+# `run_supervised` (ROADMAP.md §A6)
+POLICY_DEFERRED = ("worker_failure_threshold", "min_workers",
+                   "checkpoint_every", "degrade_gracefully")
 
 
 def _fields(cls):
@@ -114,6 +120,57 @@ def test_fleet_monitor_checkpoint_and_fault_surfaces_match_reference():
                  "FaultInjector", "flip_bits"):
         assert hasattr(faults, name) and hasattr(rfaults, name), name
     assert _fields(faults.FaultInjector) == _fields(rfaults.FaultInjector)
-    # the supervised scheduler's pieces come with it (ROADMAP.md §A6)
-    for name in ("RoundFailure", "FaultPolicy", "SupervisedReport"):
-        assert hasattr(rfaults, name) and not hasattr(faults, name), name
+    # the profile service's round pieces are ported; the supervised
+    # scheduler's report and policy knobs come with it (ROADMAP.md §A6)
+    for name in ("RoundFailure", "FaultPolicy"):
+        assert hasattr(faults, name) and hasattr(rfaults, name), name
+    assert _fields(faults.FaultPolicy) == [
+        f for f in _fields(rfaults.FaultPolicy) if f not in POLICY_DEFERRED]
+    assert set(POLICY_DEFERRED) <= set(_fields(rfaults.FaultPolicy))
+    for name in ("crashed_workers", "round_should_fail"):
+        assert (params(getattr(faults.FaultInjector, name))
+                == params(getattr(rfaults.FaultInjector, name))), name
+    assert (hasattr(rfaults, "SupervisedReport")
+            and not hasattr(faults, "SupervisedReport"))
+
+
+def test_serve_surface_matches_reference():
+    """`repro_torch.serve` exports the reference's names; `ServeAnswer`,
+    `QueueStats` and `PendingQuery` have its fields; the service's and the
+    queue's methods its parameters; the corpus takes `devices=` where the
+    reference takes `mesh=`."""
+    import repro.serve as rserve
+    import repro_torch.serve as tserve
+    from repro.serve import queue as rqueue
+    from repro_torch.serve import queue as tqueue
+
+    def params(fn):
+        return list(inspect.signature(fn).parameters)
+
+    assert tserve.__all__ == rserve.__all__
+    for name in tserve.__all__:
+        assert hasattr(tserve, name), name
+    assert _fields(tserve.ServeAnswer) == _fields(rserve.ServeAnswer)
+    assert _fields(tserve.QueueStats) == _fields(rserve.QueueStats)
+    assert _fields(tqueue.PendingQuery) == _fields(rqueue.PendingQuery)
+    for cls, names in (("ProfileService", ("__init__", "submit", "step",
+                                           "drain", "serve")),
+                       ("AdmissionQueue", ("__init__", "submit",
+                                           "take_expired", "take_batch",
+                                           "mark_completed")),
+                       ("RoundLoop", ("__init__", "dispatch", "deliver_next",
+                                      "drain")),
+                       ("ShardedCorpus", ("side", "reload", "groups"))):
+        for name in names:
+            got = params(getattr(getattr(tserve, cls), name))
+            want = params(getattr(getattr(rserve, cls), name))
+            assert got == want, (cls, name)
+    # every pair runs its own `ab_join` plan (ROADMAP.md §C (14)): no
+    # batched plan, no stacked payload
+    assert params(tserve.ShardedCorpus.plan_for) == [
+        p for p in params(rserve.ShardedCorpus.plan_for) if p != "batch"]
+    assert not hasattr(tserve.ShardedCorpus, "assemble_batch")
+    assert hasattr(rserve.ShardedCorpus, "assemble_batch")
+    corpus = params(tserve.ShardedCorpus.__init__)
+    assert corpus == ["devices" if p == "mesh" else p
+                      for p in params(rserve.ShardedCorpus.__init__)]

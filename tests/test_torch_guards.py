@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"natsa_mp.py", "flash_attn.py", "ref.py", "ops.py", "plan.py",
-            "zstats.py", "matrix_profile.py", "chip_smoke.py"} <= names
+            "zstats.py", "matrix_profile.py", "chip_smoke.py", "corpus.py",
+            "frontend.py", "queue.py", "rounds.py", "serve.py"} <= names
     assert repro_torch.resolve_device is resolve_device
 
 
