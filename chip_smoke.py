@@ -104,11 +104,24 @@ Phases, each printing one JSON line:
      NATSA launch; a seeded `FaultInjector` run (a crashed shard degrades to
      coverage 0.5 bit for bit the survivors' union, a transient failure
      retries to ok, a lapsed deadline answers expired);
- 18. `{"kernels": [...]}`: each ported kernel with its launches on every
+ 18. `main_anytime`: `AnytimeScheduler` with 8 workers x 8 chunks on the
+     one card: the ecg-256k self-join (exclusion 128, a planted pair) and
+     epilepsy-128k against 32768 (AB, unswapped), one NATSA launch per
+     non-empty chunk (64 each), `round_ms` per round and `fraction_done`
+     rising strictly to 1.0; the chunked profiles bit for bit one launch's
+     correlations (indices differ only at exact ties, counted), every chunk
+     against the plain version under the full-size rule with its kernel
+     ms; 64 sampled rows against the f64 oracle, the pair found, the AB
+     sides against `ab_join(return_b=True)`; a checkpoint after round 4
+     resumed on 4 workers and a seeded supervised run (crashes, retries, a
+     killed and flipped checkpoints), each bit for bit the clean run; k = 4
+     at bench-16k on the band engine's top-k chunks (no NATSA launch)
+     against its f64 exact top-4, its supervised run bit for bit;
+ 19. `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
-     per k = 1 serve pair), its error against the plain version and its
-     times beside its bound.
+     per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1), its
+     error against the plain version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -217,6 +230,22 @@ SERVE_K, SERVE_K_SERIES, SERVE_K_N, SERVE_K_QUERIES, SERVE_K_QUERY_N = (
 # p_round_failure=0.3, max_round_failures=2): shard 0 crashes at tick 0,
 # tick 2 (shard 0 again) fails once and retries
 SERVE_FAULT_SEED = 36
+# the anytime scheduler (core/scheduler.py) on the one card: 8 workers x 8
+# equal-work chunks, so 64 NATSA launches at k = 1 over 8 rounds, on the
+# ecg-256k self-join (exclusion 128 = default_exclusion(512)) and on
+# epilepsy-128k against 32768 (AB, unswapped, exclusion 0); a checkpoint
+# after round 4 resumed on 4 workers; k = 4 at bench-16k
+# (configs/natsa.py:23) on the band engine's top-k chunks
+ANYTIME_WORKERS, ANYTIME_CPW, ANYTIME_EXCL = 8, 8, 128
+ANYTIME_CKPT_ROUND, ANYTIME_RESUME_WORKERS = 4, 4
+ANYTIME_K, ANYTIME_K_N, ANYTIME_K_M = 4, 16384, 128
+# FaultInjector.seeded(2, **ANYTIME_FAULTS) over a 64-chunk, 8-worker plan:
+# 10 rounds, 4 retries, worker 3 excluded after 3 crashes, 3 replans, 1
+# killed and 3 flipped checkpoints of 10 (the same schedule on both cells)
+ANYTIME_FAULT_SEED = 2
+ANYTIME_FAULTS = dict(n_rounds=64, n_workers=8, p_worker_crash=0.15,
+                      p_round_failure=0.3, max_round_failures=2,
+                      p_checkpoint_kill=0.2, p_checkpoint_flip=0.2)
 
 
 def emit(obj) -> None:
@@ -2315,6 +2344,283 @@ def phase_serve() -> dict:
     return out
 
 
+def _anytime_rounds(sch, ckpt_path=None) -> dict:
+    """Step every round of `sch`, each on the host clock to the card's end
+    of it; checkpoint after round ANYTIME_CKPT_ROUND when a path is given.
+    `fraction_done` must rise strictly to 1.0."""
+    round_ms, fracs, save_s = [], [], None
+    for r in range(sch.plan.n_rounds):
+        st, secs = _timed(sch.step_round)
+        round_ms.append(1e3 * secs)
+        fracs.append(st.fraction_done)
+        if ckpt_path is not None and r + 1 == ANYTIME_CKPT_ROUND:
+            t0 = time.perf_counter()
+            sch.checkpoint(ckpt_path)
+            save_s = time.perf_counter() - t0
+    check(all(b > a for a, b in zip(fracs, fracs[1:])) and fracs[-1] == 1.0,
+          f"fraction_done must rise strictly to 1.0: {fracs}")
+    return {"round_ms": round_ms, "fraction_done": fracs, "save_s": save_s}
+
+
+def _chunk_case(sch, k0: int, k1: int):
+    """The kernel inputs of one chunk, padded as `ops.rowmax_chunk` /
+    `ops.ab_rowmax_chunk` pad them, and its swept cells."""
+    from repro_torch.core import partition
+    from repro_torch.kernels import ops
+
+    it, dt = sch.sweep_plan.it, sch.sweep_plan.dt
+    if not sch.ab:
+        l = sch.l
+        df, dg, invn, cov0p, n_rows, _, _ = ops._pad_streams(
+            sch.stats, it, dt, k0, k1)
+        rows = n_rows * it
+        return ((df[:rows], dg[:rows], invn[:rows], df, dg, invn, cov0p),
+                dict(k_start=k0, k_end=k1, l_i=l, l_j=l, jpad=0),
+                partition.range_work(l, (k0, k1)))
+    *args, _, _, jpad = ops._pad_streams_ab(sch.cross, it, dt, k0, k1)
+    return (tuple(args), dict(k_start=k0, k_end=k1, l_i=sch.l, l_j=sch.l_b,
+                              jpad=jpad),
+            partition.range_work_ab(sch.l, sch.l_b, (k0, k1)))
+
+
+def _anytime_chunks(sch, ts_rows, ts_cols, m) -> dict:
+    """Each non-empty chunk through the kernel against the plain version
+    on the same inputs (the full-size rule: TOL_ORACLE, 0 tie and 0
+    exact-pair violations), its kernel ms (CUDA events, after the compared
+    launch) and its bound."""
+    from repro_torch.kernels import natsa_mp
+
+    ms, bound, worst = [], [], {"max_abs_err": 0.0, "idx_mismatch": 0,
+                                "tie_violations": 0,
+                                "exact_pair_violations": 0}
+    plain_ms = 0.0
+    for k0, k1 in sch.plan.chunks:
+        if k1 <= k0:
+            continue
+        args, kw, cells = _chunk_case(sch, k0, k1)
+        kern = natsa_mp.rowmax_profile_ab(*args, **kw)
+        ms.append(cuda_ms(lambda: natsa_mp.rowmax_profile_ab(*args, **kw), 1))
+        box = []
+        plain_ms += cuda_ms(lambda: box.append(
+            natsa_mp.rowmax_profile_ab_plain(*args, **kw)), 1)
+        res = compare_full_size(kern, box[0], ts_rows, ts_cols, m, kw["jpad"])
+        check(res["max_abs_err"] <= TOL_ORACLE and res["tie_violations"] == 0
+              and res["exact_pair_violations"] == 0,
+              f"chunk [{k0}, {k1}) kernel vs plain {res}")
+        worst = {f: max(worst[f], res[f]) if f == "max_abs_err"
+                 else worst[f] + res[f] for f in worst}
+        bound.append(_bound(args, kw, cells)["bound_ms"])
+        del kern, box
+    return {"chunks": len(ms), "chunk_ms": ms, "chunk_ms_sum": sum(ms),
+            "chunk_ms_max": max(ms), "plain_ms_sum": plain_ms,
+            "bound_ms_sum": sum(bound), "vs_plain": worst}
+
+
+def _vs_one_launch(got, one, ts_rows, ts_cols, m) -> dict:
+    """A chunked (corr, idx) side against one launch's: the correlations
+    must be equal bit for bit; indices may differ only at an exact tie
+    (equal f32 values), counted, and both picks' f64 correlations must lie
+    within TOL_ORACLE."""
+    import torch
+
+    gc, gi = got
+    oc, oi = one
+    check(torch.equal(gc, oc), "chunked correlations differ from one "
+          f"launch's: max |d| {float((gc - oc).abs().max())}")
+    at = ((gi != oi) & (gi >= 0) & (oi >= 0)).nonzero().flatten()
+    e_got = _exact_corr(ts_rows, ts_cols, m, at, gi[at])
+    e_one = _exact_corr(ts_rows, ts_cols, m, at, oi[at])
+    bad = int(((e_got - e_one).abs() >= TOL_ORACLE).sum())
+    check(bad == 0 and int((gi != oi).sum()) == len(at),
+          f"{bad} index mismatches off ties")
+    return {"corr_bitwise": True, "index_ties": len(at)}
+
+
+def _supervised(mk, clean, fields, path) -> dict:
+    """A fresh scheduler under the seeded fault schedule, supervised with a
+    checkpoint every round: bit for bit the clean run's `fields`."""
+    import torch
+
+    from repro_torch.core.faults import FaultInjector, FaultPolicy
+
+    sch = mk()
+    inj = FaultInjector.seeded(ANYTIME_FAULT_SEED, **ANYTIME_FAULTS)
+    res, secs = _timed(lambda: sch.run_supervised(
+        FaultPolicy(checkpoint_every=1, worker_failure_threshold=3,
+                    sleep=lambda _s: None),
+        checkpoint_path=path, injector=inj))
+    rep = dataclasses.asdict(sch.supervised_report)
+    rep["worker_failures"] = sorted(rep["worker_failures"].items())
+    equal = all(torch.equal(getattr(res, f), getattr(clean, f))
+                for f in fields)
+    check(equal and not rep["degraded"] and rep["fraction_done"] == 1.0,
+          f"supervised run vs the clean run: equal={equal}, report {rep}")
+    check(rep["retries"] > 0 and rep["checkpoint_failures"] > 0
+          and rep["checkpoints_corrupted"] > 0 and rep["worker_failures"]
+          and rep["excluded_workers"], f"schedule without its faults: {rep}")
+    return {"bitwise_clean": equal, "s": secs, "report": rep}
+
+
+def phase_anytime() -> dict:
+    """The anytime scheduler on the card, 8 workers x 8 chunks: the
+    ecg-256k self-join (a planted pair, checkpoint after round 4 resumed on
+    4 workers, a seeded supervised run) and the epilepsy-128k AB join, each
+    non-empty k = 1 chunk one NATSA launch; every chunk against the plain
+    version, the chunked profiles bit for bit one launch's correlations;
+    k = 4 at bench-16k on the band engine's top-k chunks, no NATSA launch,
+    against its f64 exact top-k and bit for bit under supervision."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.matrix_profile import (ProfileState,
+                                                 default_exclusion)
+    from repro_torch.core.scheduler import AnytimeScheduler
+    from repro_torch.kernels import ops
+
+    tmp = tempfile.mkdtemp(prefix="anytime_")
+    out = {"phase": "main_anytime", "card": torch.cuda.get_device_name(0),
+           "workers": ANYTIME_WORKERS, "chunks_per_worker": ANYTIME_CPW}
+    try:
+        # -- ecg-256k self-join ----------------------------------------
+        rng = np.random.default_rng(SEED + 30)
+        n, m = SELF_N, SELF_M
+        pa, pb = n // 5, (3 * n) // 5 + 17
+        ts = plant(walk(rng, n), pa, pb, m)
+        check(ANYTIME_EXCL == default_exclusion(m), "ecg-256k exclusion")
+
+        def mk(workers=ANYTIME_WORKERS):
+            return AnytimeScheduler(ts, m, [DEVICE] * workers,
+                                    chunks_per_worker=ANYTIME_CPW,
+                                    exclusion=ANYTIME_EXCL)
+
+        sch, setup_s = _timed(mk)
+        live = sum(k1 > k0 for k0, k1 in sch.plan.chunks)
+        ckpt = os.path.join(tmp, "self.npz")
+        reset_counts()
+        rounds = _anytime_rounds(sch, ckpt)
+        counts = read_counts()
+        check(counts["natsa_mp"] == live == ANYTIME_WORKERS * ANYTIME_CPW
+              and counts["flash_attn"] == 0,
+              f"anytime self-join launches {counts}, want {live} NATSA")
+        res = sch.result()
+        l = sch.l
+        check(res.p.shape == (l,) and res.p.device.type == DEVICE
+              and bool(torch.isfinite(res.p).all()), "anytime result")
+        found = (int(res.i[pa]), int(res.i[pb]))
+        check(found == (pb, pa), f"planted pair ({pa},{pb}) -> {found}")
+        rows = np.sort(np.random.default_rng(SEED + 31).choice(
+            l, SAMPLED_ROWS, replace=False))
+        oracle = _oracle_rows(res.p, ts, ts, m, rows, ANYTIME_EXCL)
+        check(oracle <= TOL_ORACLE, f"anytime oracle {oracle}")
+        cr, ir, cc, ic = ops.rowmax_from_stats(sch.stats, excl=ANYTIME_EXCL)
+        one = ProfileState(cr, ir).merge(ProfileState(cc, ic))
+        vs_one = _vs_one_launch((sch.state.profile.corr,
+                                 sch.state.profile.index),
+                                (one.corr, one.index), ts, ts, m)
+        chunks = _anytime_chunks(sch, ts, ts, m)
+        fresh = mk(ANYTIME_RESUME_WORKERS)
+        t0 = time.perf_counter()
+        fresh.resume(ckpt)
+        restore_s = time.perf_counter() - t0
+        before = read_counts()["natsa_mp"]
+        fresh.run()
+        resumed = {
+            "workers": ANYTIME_RESUME_WORKERS, "save_s": rounds.pop("save_s"),
+            "restore_s": restore_s, "npz_bytes": os.path.getsize(ckpt),
+            "launches": read_counts()["natsa_mp"] - before,
+            "bitwise_clean": all(torch.equal(getattr(fresh.result(), f),
+                                             getattr(res, f))
+                                 for f in ("p", "i"))}
+        check(resumed["bitwise_clean"], "resumed run differs from the clean")
+        sup = _supervised(mk, res, ("p", "i"), os.path.join(tmp, "sup.npz"))
+        out["self"] = {"n": n, "m": m, "exclusion": ANYTIME_EXCL, "l": l,
+                       "setup_s": setup_s, "launches": counts["natsa_mp"],
+                       "counts": counts, **rounds,
+                       "rounds_s": sum(rounds["round_ms"]) / 1e3,
+                       "motif": [pa, pb], "oracle_rows": SAMPLED_ROWS,
+                       "oracle_max_corr_err": oracle,
+                       "vs_one_launch": vs_one, **chunks,
+                       "resume": resumed, "supervised": sup}
+        del sch, fresh, one, res
+
+        # -- epilepsy-128k AB join, unswapped -------------------------
+        from repro_torch.core import ab_join
+
+        rng = np.random.default_rng(SEED + 32)
+        a, b = walk(rng, AB_NA), walk(rng, AB_NB)
+        m = AB_M
+        sch = AnytimeScheduler(a, m, [DEVICE] * ANYTIME_WORKERS, ts_b=b,
+                               chunks_per_worker=ANYTIME_CPW)
+        live = sum(k1 > k0 for k0, k1 in sch.plan.chunks)
+        reset_counts()
+        rounds = _anytime_rounds(sch)
+        counts = read_counts()
+        check(counts["natsa_mp"] == live and counts["flash_attn"] == 0,
+              f"anytime AB launches {counts}, want {live} NATSA")
+        ca, ia, cb, ib = ops.ab_rowmax_from_stats(sch.cross)
+        vs_one = {"a": _vs_one_launch((sch.state.profile.corr,
+                                       sch.state.profile.index), (ca, ia),
+                                      a, b, m),
+                  "b": _vs_one_launch((sch.state.profile_b.corr,
+                                       sch.state.profile_b.index), (cb, ib),
+                                      b, a, m)}
+        res = sch.result()
+        ref = ab_join(a, b, m, return_b=True, device=DEVICE)
+        vs_ab_join = compare_full_size(_sides(res, "ab", m),
+                                       _sides(ref, "ab", m), a, b, m, 0)
+        check(vs_ab_join["max_abs_err"] <= TOL_ORACLE
+              and vs_ab_join["tie_violations"] == 0
+              and vs_ab_join["exact_pair_violations"] == 0,
+              f"anytime AB vs ab_join {vs_ab_join}")
+        chunks = _anytime_chunks(sch, a, b, m)
+        out["ab"] = {"n_a": AB_NA, "n_b": AB_NB, "m": m, "exclusion": 0,
+                     "launches": counts["natsa_mp"], "counts": counts,
+                     **{f: v for f, v in rounds.items() if f != "save_s"},
+                     "rounds_s": sum(rounds["round_ms"]) / 1e3,
+                     "vs_one_launch": vs_one, "vs_ab_join": vs_ab_join,
+                     **chunks}
+        del sch, ref, res
+
+        # -- k = 4 at bench-16k on the engine's top-k chunks ----------
+        rng = np.random.default_rng(SEED + 33)
+        n, m, k = ANYTIME_K_N, ANYTIME_K_M, ANYTIME_K
+        ts = walk(rng, n)
+
+        def mk4():
+            return AnytimeScheduler(ts, m, [DEVICE] * ANYTIME_WORKERS, k=k,
+                                    chunks_per_worker=ANYTIME_CPW)
+
+        sch = mk4()
+        reset_counts()
+        rounds = _anytime_rounds(sch)
+        counts = read_counts()
+        check(counts["natsa_mp"] == 0 and counts["flash_attn"] == 0,
+              f"anytime top-k launched a kernel: {counts}")
+        res = sch.result()
+        rows = np.sort(np.random.default_rng(SEED + 34).choice(
+            sch.l, SAMPLED_ROWS, replace=False))
+        oracle = _topk_vs_oracle(res.topk_p, res.topk_i, ts, ts, m, rows,
+                                 sch.exclusion)
+        check(oracle["max_corr_err"] <= TOL_ORACLE
+              and oracle["pick_violations"] == 0 and oracle["distinct"],
+              f"anytime top-{k} vs f64 exact top-{k}: {oracle}")
+        before = read_counts()["natsa_mp"]
+        sup = _supervised(mk4, res, ("topk_p", "topk_i"),
+                          os.path.join(tmp, "sup4.npz"))
+        check(read_counts()["natsa_mp"] == before, "top-k supervised launch")
+        out["topk"] = {"n": n, "m": m, "k": k, "exclusion": sch.exclusion,
+                       "launches": counts["natsa_mp"], "counts": counts,
+                       **{f: v for f, v in rounds.items() if f != "save_s"},
+                       "rounds_s": sum(rounds["round_ms"]) / 1e3,
+                       "oracle": oracle, "supervised": sup}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2339,6 +2645,7 @@ def main() -> None:
     mn = phase_monitor(raw_fleet, fleet_x)
     del raw_fleet
     sv = phase_serve()
+    an = phase_anytime()
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
                  "batch": bt,
                  "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
@@ -2353,13 +2660,16 @@ def main() -> None:
                  "monitor_scan": {"counts": mn["telemetry"]["scan_counts"]},
                  "monitor_motif": {"counts": mn["telemetry"]["motif_counts"]},
                  "fleet_monitor_scan": {"counts": mn["fleet"]["counts"]},
-                 "serve": sv, "serve_topk": sv["k4"]}
+                 "serve": sv, "serve_topk": sv["k4"],
+                 "anytime": an["self"], "anytime_ab": an["ab"],
+                 "anytime_topk": an["topk"]}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (s["launches"] + ab["launches"]
                      + mn["telemetry"]["motif_counts"]["natsa_mp"]
-                     + sv["counts"]["natsa_mp"]),
+                     + sv["counts"]["natsa_mp"]
+                     + an["self"]["launches"] + an["ab"]["launches"]),
         "launches_by_path": {"matrix_profile": s["launches"],
                              "ab_join": ab["launches"],
                              "flash_attention": fl["counts"]["natsa_mp"],
@@ -2379,6 +2689,9 @@ def main() -> None:
             "bound_ms_all_pairs": sv["bound_ms_all_pairs"],
             "shape": (f"ab n_a={SERVE_QUERY_N} n_b={SERVE_N} m={SERVE_M}, "
                       f"{sv['pairs']} pairs")},
+        "anytime": {side: {f: an[side][f] for f in (
+            "launches", "chunk_ms_sum", "chunk_ms_max", "plain_ms_sum",
+            "bound_ms_sum", "rounds_s")} for side in ("self", "ab")},
     }, {
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,

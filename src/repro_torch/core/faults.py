@@ -1,23 +1,25 @@
-"""Fault primitives — port of the part of `repro.core.faults` that the
-checkpoint writers (`checkpoint.ckpt.save`, `StreamingFleet.save`) and the
-profile service (`serve.ProfileService`) use (numpy only).
+"""Fault primitives — port of `repro.core.faults` (numpy only).
 
 The pieces here are host-side and deterministic, and the same seed gives
 the same schedule and the same flipped bytes as the reference:
 
-  * `FaultPolicy` — the retry budget and exponential backoff of a failed
-    round (the profile service retries a shard group's dispatch under it).
-    The reference's policy also carries the supervised scheduler's knobs
-    (`worker_failure_threshold`, `min_workers`, `checkpoint_every`,
-    `degrade_gracefully`); they come with that scheduler (ROADMAP.md §A6),
-    their only reader;
+  * `FaultPolicy` — the knobs of a supervised loop: per-round retry count
+    and exponential backoff (the profile service retries a shard group's
+    dispatch under them), and the supervised scheduler's own
+    (`core.scheduler.AnytimeScheduler.run_supervised`): when a repeatedly
+    crashing worker is excluded and the remaining chunks replanned over
+    the survivors, how often to checkpoint, and whether exhausted retries
+    degrade gracefully (return the current anytime answer tagged with its
+    `fraction_done`) or raise;
   * `FaultInjector` — a SEEDED, fully deterministic schedule of faults
     (worker crashes per round, transient round failures, kill-mid-checkpoint
-    writes, post-write checkpoint bit-flips). The profile service consults
-    the round hooks `crashed_workers` and `round_should_fail` once per
-    shard-group tick; the checkpoint writer consults `on_checkpoint_write`
-    and `after_checkpoint_write`. `SupervisedReport` comes with the
-    supervised scheduler (ROADMAP.md §A6);
+    writes, post-write checkpoint bit-flips). The supervised scheduler and
+    the profile service consult the round hooks `crashed_workers` and
+    `round_should_fail` once per tick; the checkpoint writers consult
+    `on_checkpoint_write` and `after_checkpoint_write`;
+  * `SupervisedReport` — what one `run_supervised` call did: rounds,
+    retries, excluded workers, replans, checkpoints written/failed,
+    degradation;
   * `flip_bits` — the model of silent disk corruption.
 
 Exceptions: `RoundFailure` is the retryable dispatch failure;
@@ -25,7 +27,7 @@ Exceptions: `RoundFailure` is the retryable dispatch failure;
 on-disk checkpoint is still intact — atomic rename commit);
 `CheckpointCorruptionError` is raised when a checkpoint fails
 checksum/truncation verification (a restore then falls back to the
-previous good step if one exists).
+previous good file if one exists).
 """
 
 from __future__ import annotations
@@ -54,23 +56,56 @@ class CheckpointCorruptionError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class FaultPolicy:
-    """Retry knobs, with the reference's defaults.
+    """Supervision knobs, with the reference's fields and defaults.
 
     max_retries              retries per round before giving up on it
     backoff_base/backoff_max exponential backoff (seconds) between retries:
                              delay = min(base * 2**(attempt-1), max)
+    worker_failure_threshold crashes after which a worker slot is excluded
+                             and the remaining chunks replanned over the
+                             survivors
+    min_workers              never exclude below this many survivors
+    checkpoint_every         checkpoint every N completed rounds (None = no
+                             periodic checkpointing; requires a
+                             `checkpoint_path` either way)
+    degrade_gracefully       on exhausted retries return the current anytime
+                             `ProfileResult` tagged with `fraction_done`
+                             instead of raising
     sleep                    injectable clock (tests pass a no-op)
+
+    The profile service reads the retry knobs only; the other four are
+    `run_supervised`'s.
     """
 
     max_retries: int = 3
     backoff_base: float = 0.05
     backoff_max: float = 2.0
+    worker_failure_threshold: int = 2
+    min_workers: int = 1
+    checkpoint_every: int | None = None
+    degrade_gracefully: bool = True
     sleep: Callable[[float], None] = dataclasses.field(default=time.sleep)
 
     def backoff(self, attempt: int) -> float:
         """Delay before retry `attempt` (1-based)."""
         return min(self.backoff_base * (2.0 ** max(attempt - 1, 0)),
                    self.backoff_max)
+
+
+@dataclasses.dataclass
+class SupervisedReport:
+    """What one `run_supervised` call did — the observable fault history."""
+
+    rounds: int = 0
+    retries: int = 0
+    worker_failures: dict = dataclasses.field(default_factory=dict)
+    excluded_workers: list = dataclasses.field(default_factory=list)
+    replans: int = 0
+    checkpoints_written: int = 0
+    checkpoint_failures: int = 0
+    checkpoints_corrupted: int = 0
+    degraded: bool = False
+    fraction_done: float = 1.0
 
 
 @dataclasses.dataclass

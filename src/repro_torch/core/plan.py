@@ -1,11 +1,13 @@
 """Declarative sweep planning: one plan + executor behind every entry point.
 
 Port of `repro.core.plan`. Every entry point builds a frozen `SweepPlan`
-with `plan_sweep(...)` and hands it to `execute(...)`. Three backends are
+with `plan_sweep(...)` and hands it to `execute(...)`. Four backends are
 ported: the CUDA NATSA kernel ("kernel"), the band engine ("engine", the
 plain-tensor sweep of `core.matrix_profile`, with its exact top-k, its
-nonnorm recurrence and the 16-bit self-join tile sweep) and the
-row-streamed AB sweep ("rowstream"). `backend=None` resolves an unbatched
+nonnorm recurrence and the 16-bit self-join tile sweep), the
+row-streamed AB sweep ("rowstream") and the anytime scheduler's rounds
+("distributed", run round by round through `round_executor` over a list
+of devices in one process; k = 1 chunks launch the NATSA kernel). `backend=None` resolves an unbatched
 k = 1 z-normalized plan to the kernel unless the call asks for what only
 the engine does — a non-default `band`, `clamp_rows=False`, a
 `reseed_every` other than its default or None, or `accum="float64"`;
@@ -16,7 +18,8 @@ stacked payload as the unbatched plan would. What the reference plans onto
 other sweeps raises `NotImplementedError` here rather than quietly taking
 another path:
 
-  * `backend="distributed"`, naming the ROADMAP.md item that brings it;
+  * a round executor under a multi-process `torch.distributed` group,
+    naming the ROADMAP.md item that brings it;
   * on the kernel backend, a non-default `band` or `clamp_rows`, and a
     `reseed_every` other than its default or None: the CUDA kernel, like
     the TPU kernel it replaces, never reseeds, so the default is recorded
@@ -54,7 +57,8 @@ BACKENDS = ("engine", "rowstream", "kernel", "distributed")
 
 # what is not ported yet -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "distributed": "distributed rounds (ROADMAP.md §A6)",
+    "multi-process": "multi-process rounds over torch.distributed "
+                     "(ROADMAP.md §A6 (ii))",
 }
 
 
@@ -75,8 +79,8 @@ class SweepPlan:
     does not read it (one flat column accumulator), the engine banks its
     AB column state by it. `band`, `clamp_rows` and `reseed_every` are the
     band engine's; a kernel plan holds their defaults (or
-    `reseed_every=None`). `n_bands` belongs to distributed plans, not yet
-    ported.
+    `reseed_every=None`). `n_bands` is a distributed plan's band count of
+    its widest chunk, stamped in after partitioning.
     """
 
     # -- geometry ----------------------------------------------------------
@@ -183,10 +187,13 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
         `ValueError`) and reads f32/bf16/f16 streams: f64 streams are
         rounded to f32 once before the launch, as the reference's kernel
         rounds them on load;
+      * distributed plans accumulate in f32; `round_executor` runs them;
       * every `ValueError` of the reference's planner is raised here too,
-        before the port's own refusals (`NotImplementedError`): the
-        kernel takes none of the engine's band options, and `distributed`
-        is not ported.
+        before the port's own refusals (`NotImplementedError`): the kernel
+        takes none of the engine's band options, and a k = 1 distributed
+        plan, whose chunks run the kernel, takes neither `clamp_rows=False`
+        nor a `reseed_every` other than its default or None (its `band`
+        still aligns the chunks).
     """
     m = int(window)
     prec = as_precision(precision)
@@ -264,14 +271,20 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
         raise ValueError(f"backend {backend!r} accumulates in f32; "
                          f"accum={prec.accum!r} is engine/rowstream-only")
 
-    if backend == "distributed":
-        raise _not_ported("distributed")
     if backend == "kernel" and band_options:
         raise NotImplementedError(
             "the band engine's band, clamp_rows and reseed_every options "
             "are not the CUDA kernel's: it never reseeds its f32 "
             "covariance carry; plan backend='engine' (or leave "
             "backend=None) for them")
+    if backend == "distributed" and not topk and (
+            clamp_rows is not True
+            or reseed_every not in (DEFAULT_RESEED, None)):
+        raise NotImplementedError(
+            "the band engine's clamp_rows and reseed_every options are not "
+            "the CUDA kernel's, which runs the k = 1 distributed chunks "
+            "(ROADMAP.md §C (15)): it never reseeds its f32 covariance "
+            "carry; band still sets the chunk alignment")
     dev = resolve_device(device)
 
     # short side onto rows for the backends whose row axis is streamed
@@ -387,10 +400,14 @@ def execute(plan: SweepPlan, stats) -> SweepResult:
     `raw_series`). A batched plan takes the same payload stacked
     (`zstats.stack_stats`) and sweeps each series as the unbatched plan
     would, so every stacked field equals the sequential calls bit for
-    bit."""
+    bit. Distributed plans run round by round through `round_executor`."""
     if plan.batch is not None:
         return _execute_batched(plan, stats)
     _check_stats(plan, stats)
+    if plan.backend == "distributed":
+        raise ValueError("distributed plans execute round-by-round: build "
+                         "the round fn with round_executor(plan, devices) "
+                         "— AnytimeScheduler drives it")
     if plan.kind == "self":
         return _execute_self(plan, stats)
     return _execute_ab(plan, stats)
@@ -617,3 +634,33 @@ def _execute_ab_topk(plan: SweepPlan, stats: CrossStats,
                     b_topk_i=tb.index)
 
     return _attach(res, ("b", "b_topk"), fin_b_topk, two_sided)
+
+
+def round_executor(plan: SweepPlan, devices):
+    """Executor entry for distributed plans: the round function the
+    `AnytimeScheduler` steps (the only caller of
+    `distributed.make_round_fn` / `make_round_fn_ab`). `devices` takes the
+    place of the reference's `(mesh, axis)`: one torch device per worker,
+    where one card may repeat; the workers run in this process, one after
+    another, and their states merge on `devices[0]`. The plan must carry
+    `n_bands` — the band count of the widest chunk — which the scheduler
+    knows only after partitioning (use `dataclasses.replace`)."""
+    if plan.backend != "distributed":
+        raise ValueError(f"round_executor needs a distributed plan, got "
+                         f"backend {plan.backend!r}")
+    if plan.n_bands is None:
+        raise ValueError("distributed plan lacks n_bands: "
+                         "dataclasses.replace(plan, n_bands=...) after "
+                         "partitioning")
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise _not_ported("multi-process")
+    from repro_torch.core import distributed
+
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices must name at least one device")
+    if plan.kind == "ab":
+        return distributed.make_round_fn_ab(plan, devs)
+    return distributed.make_round_fn(plan, devs)

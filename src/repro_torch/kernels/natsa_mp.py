@@ -255,13 +255,15 @@ def rowmax_profile_ab_plain(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
 
 
 def rowmax_profile(df, dg, invn, cov0, *, excl: int, l: int,
-                   it: int = DEFAULT_IT):
-    """Self-join entry: diagonals k in [excl, l) of one series, whose
-    column side is the lower triangle — merged with the row side it is the
-    complete profile. `df/dg/invn` (LP,), LP >= rows + excl + len(cov0)
-    with rows = l rounded up to `it`; `cov0` (n_diag,) f32 = cov(0, excl+d).
+                   it: int = DEFAULT_IT, k_end: int | None = None):
+    """Self-join entry: diagonals k in [excl, k_end) (default [excl, l)) of
+    one series, whose column side is the lower triangle — merged with the
+    row side over [excl, l) it is the complete profile. `df/dg/invn` (LP,),
+    LP >= rows + excl + len(cov0) with rows = l rounded up to `it`; `cov0`
+    (n_diag,) f32 = cov(0, excl+d).
     """
     rows = -(-l // it) * it
     return rowmax_profile_ab(
         df[:rows], dg[:rows], invn[:rows], df, dg, invn, cov0,
-        k_start=excl, k_end=l, l_i=l, l_j=l, jpad=0)
+        k_start=excl, k_end=l if k_end is None else k_end, l_i=l, l_j=l,
+        jpad=0)

@@ -6,6 +6,10 @@ Pipeline (the paper's Fig. 1 dataflow):
      their kernels identical arrays;
   3. ONE kernel launch per diagonal span -> both profile sides;
   4. merge the sides in correlation space (the plan converts to distance).
+
+A span may be a whole sweep or one chunk of the anytime scheduler's
+rounds (`rowmax_chunk`, `ab_rowmax_chunk`: signed diagonals [k0, k1)); an
+empty chunk launches nothing.
 """
 
 from __future__ import annotations
@@ -37,15 +41,19 @@ def _kernel_stream(x: torch.Tensor) -> torch.Tensor:
     return x.float() if x.dtype == torch.float64 else x
 
 
-def _pad_streams(stats: ZStats, it: int, dt: int, excl: int):
-    """Pad streams; returns (df, dg, invn, cov0p, n_rows, n_diags, l)."""
+def _pad_streams(stats: ZStats, it: int, dt: int, excl: int,
+                 k_end: int | None = None):
+    """Pad streams for diagonals [excl, k_end) (default: to l); returns
+    (df, dg, invn, cov0p, n_rows, n_diags, l)."""
     l = stats.n_subsequences
+    k_end = l if k_end is None else k_end
     n_rows = -(-l // it)
-    n_diag_total = max(l - excl, 1)
+    n_diag_total = max(k_end - excl, 1)
     n_diags = -(-n_diag_total // dt)
     pad = n_rows * it + excl + n_diags * dt - l
     # seeds feed the f32 covariance carry directly, whatever the streams' dtype
-    cov0p = _pad(stats.cov0.float()[excl:], 0, n_diags * dt - n_diag_total)
+    cov0p = _pad(stats.cov0.float()[excl:k_end], 0,
+                 n_diags * dt - n_diag_total)
     df, dg, invn = (_pad(_kernel_stream(x), 0, pad)
                     for x in (stats.df, stats.dg, stats.invn))
     return df, dg, invn, cov0p, n_rows, n_diags, l
@@ -76,9 +84,32 @@ def rowmax_from_stats(stats: ZStats, *, excl: int, it: int = DEFAULT_IT,
     """Two-sided self-join harvest via ONE kernel launch: (corr (l,), idx,
     col_corr (l,), col_idx) — the row half (j > i) and the column half
     (j < i) of the same swept cells."""
-    df, dg, invn, cov0p, _, _, l = _pad_streams(stats, it, dt, excl)
+    return rowmax_chunk(stats, excl, stats.n_subsequences, it=it, dt=dt)
+
+
+def _empty_sides(l_rows: int, l_cols: int, device):
+    """(NEG, -1) row and column sides: an empty chunk's harvest."""
+    def side(n):
+        return (torch.full((n,), NEG, dtype=torch.float32, device=device),
+                torch.full((n,), -1, dtype=torch.int32, device=device))
+
+    return (*side(l_rows), *side(l_cols))
+
+
+def rowmax_chunk(stats: ZStats, k0: int, k1: int, *, it: int = DEFAULT_IT,
+                 dt: int = DEFAULT_DT):
+    """`rowmax_from_stats` over the self-join diagonals [k0, k1) only: one
+    launch sized to the chunk, (corr (l,), idx, col_corr (l,), col_idx).
+    An empty chunk (k1 <= k0) returns (NEG, -1) sides and launches
+    nothing. A diagonal's cells do not depend on the span it is swept in,
+    so chunks covering [excl, l) give one launch's correlations bit for
+    bit."""
+    l = stats.n_subsequences
+    if k1 <= k0:
+        return _empty_sides(l, l, stats.df.device)
+    df, dg, invn, cov0p, _, _, _ = _pad_streams(stats, it, dt, k0, k1)
     corr, idx, colc, coli = natsa_mp.rowmax_profile(
-        df, dg, invn, cov0p, excl=excl, l=l, it=it)
+        df, dg, invn, cov0p, excl=k0, l=l, it=it, k_end=k1)
     return corr[:l], idx[:l], colc[:l], coli[:l]
 
 
@@ -146,21 +177,29 @@ def ab_rowmax_from_stats(cross: CrossStats, *, exclusion: int = 0,
     (corr_a (l_a,), idx_a, corr_b (l_b,), idx_b) — A's profile over B and
     B's over A, from the same sweep."""
     la, lb = cross.l_a, cross.l_b
-    dev = cross.cov0s.device
-    corr = torch.full((la,), NEG, dtype=torch.float32, device=dev)
-    idx = torch.full((la,), -1, dtype=torch.int32, device=dev)
-    corr_b = torch.full((lb,), NEG, dtype=torch.float32, device=dev)
-    idx_b = torch.full((lb,), -1, dtype=torch.int32, device=dev)
+    corr, idx, corr_b, idx_b = _empty_sides(la, lb, cross.cov0s.device)
     for s0, s1 in ab_spans(la, lb, exclusion):
-        (df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0p,
-         _, _, jpad) = _pad_streams_ab(cross, it, dt, s0, s1)
-        c, ix, cc, ci = natsa_mp.rowmax_profile_ab(
-            df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0p,
-            k_start=s0, k_end=s1, l_i=la, l_j=lb, jpad=jpad)
-        corr, idx = _merge_corr(corr, idx, c[:la], ix[:la])
-        corr_b, idx_b = _merge_corr(corr_b, idx_b,
-                                    cc[jpad:jpad + lb], ci[jpad:jpad + lb])
+        c, ix, cc, ci = ab_rowmax_chunk(cross, s0, s1, it=it, dt=dt)
+        corr, idx = _merge_corr(corr, idx, c, ix)
+        corr_b, idx_b = _merge_corr(corr_b, idx_b, cc, ci)
     return corr, idx, corr_b, idx_b
+
+
+def ab_rowmax_chunk(cross: CrossStats, k0: int, k1: int, *,
+                    it: int = DEFAULT_IT, dt: int = DEFAULT_DT):
+    """Both AB sides over the signed diagonals [k0, k1) in ONE launch, in
+    the orientation `cross` is built in: (corr_a (l_a,), idx_a, corr_b
+    (l_b,), idx_b). An empty chunk (k1 <= k0) returns (NEG, -1) sides and
+    launches nothing."""
+    la, lb = cross.l_a, cross.l_b
+    if k1 <= k0:
+        return _empty_sides(la, lb, cross.cov0s.device)
+    (df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0p,
+     _, _, jpad) = _pad_streams_ab(cross, it, dt, k0, k1)
+    c, ix, cc, ci = natsa_mp.rowmax_profile_ab(
+        df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0p,
+        k_start=k0, k_end=k1, l_i=la, l_j=lb, jpad=jpad)
+    return c[:la], ix[:la], cc[jpad:jpad + lb], ci[jpad:jpad + lb]
 
 
 def natsa_ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,

@@ -1,9 +1,10 @@
 """The port's public surface against the reference's
 (`tests/test_api_surface.py`): `repro_torch.core.__all__` is the
-reference's less what is not ported yet, each missing name with the
-ROADMAP.md item that brings it; the `ProfileResult`, `HarvestSpec`,
-`PrecisionSpec`, analytics and `serve` surfaces are the reference's;
-`SweepPlan`'s fields are the reference's with `interpret` as `device`.
+reference's, name for name; the `ProfileResult`, `HarvestSpec`,
+`PrecisionSpec`, analytics, fault, scheduler and `serve` surfaces are the
+reference's; `SweepPlan`'s fields are the reference's with `interpret` as
+`device`, and a list of `devices` takes the place of a `mesh` (and its
+`axis`) wherever the reference takes one.
 """
 
 import dataclasses
@@ -19,15 +20,7 @@ from repro_torch.core.plan import SweepPlan
 from repro_torch.core.result import HarvestSpec, ProfileResult
 
 # reference names the port does not export yet -> the item that brings them
-NOT_PORTED = {
-    "round_executor": "ROADMAP.md §A6 (distributed rounds)",
-}
-
-
-# `repro.core.faults.FaultPolicy`'s supervised-scheduler knobs, read only by
-# `run_supervised` (ROADMAP.md §A6)
-POLICY_DEFERRED = ("worker_failure_threshold", "min_workers",
-                   "checkpoint_every", "degrade_gracefully")
+NOT_PORTED = {}
 
 
 def _fields(cls):
@@ -35,12 +28,10 @@ def _fields(cls):
 
 
 def test_core_all_is_the_reference_less_the_unported():
-    assert tcore.__all__ == [n for n in rcore.__all__ if n not in NOT_PORTED]
-    assert set(rcore.__all__) - set(tcore.__all__) == set(NOT_PORTED)
+    assert NOT_PORTED == {}
+    assert tcore.__all__ == rcore.__all__
     for name in tcore.__all__:
         assert hasattr(tcore, name), name
-    for name in NOT_PORTED:
-        assert not hasattr(tcore, name), name
 
 
 def test_analytics_surface():
@@ -78,13 +69,25 @@ def test_entry_points_return_profile_result():
     assert "normalize" in inspect.signature(tcore.matrix_profile).parameters
 
 
-def test_only_distributed_plans_are_refused():
-    """The planner refuses only what NOT_PORTED's §A6 brings."""
+def test_only_distributed_plans_are_refused(monkeypatch):
+    """Distributed plans are planned; only their round executor under a
+    multi-process `torch.distributed` group is refused, naming ROADMAP.md
+    §A6 (ii)."""
+    import dataclasses as dc
+
+    import torch
+
     from repro_torch.core import plan
 
-    assert set(plan._NOT_PORTED) == {"distributed"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A6"):
-        plan.plan_sweep(16, 300, backend="distributed", device="cpu")
+    assert set(plan._NOT_PORTED) == {"multi-process"}
+    p = plan.plan_sweep(16, 300, backend="distributed", device="cpu")
+    assert p.backend == "distributed"
+    runner = plan.round_executor(dc.replace(p, n_bands=2), ["cpu"])
+    assert callable(runner)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A6 \(ii\)"):
+        plan.round_executor(dc.replace(p, n_bands=2), ["cpu"])
 
 
 def test_fleet_monitor_checkpoint_and_fault_surfaces_match_reference():
@@ -120,18 +123,24 @@ def test_fleet_monitor_checkpoint_and_fault_surfaces_match_reference():
                  "FaultInjector", "flip_bits"):
         assert hasattr(faults, name) and hasattr(rfaults, name), name
     assert _fields(faults.FaultInjector) == _fields(rfaults.FaultInjector)
-    # the profile service's round pieces are ported; the supervised
-    # scheduler's report and policy knobs come with it (ROADMAP.md §A6)
-    for name in ("RoundFailure", "FaultPolicy"):
+    # the round pieces, the supervised scheduler's policy knobs and its
+    # report: the reference's fields and defaults
+    for name in ("RoundFailure", "FaultPolicy", "SupervisedReport"):
         assert hasattr(faults, name) and hasattr(rfaults, name), name
-    assert _fields(faults.FaultPolicy) == [
-        f for f in _fields(rfaults.FaultPolicy) if f not in POLICY_DEFERRED]
-    assert set(POLICY_DEFERRED) <= set(_fields(rfaults.FaultPolicy))
+    for name in ("FaultPolicy", "SupervisedReport"):
+        got, want = (dataclasses.fields(getattr(mod, name))
+                     for mod in (faults, rfaults))
+        assert [f.name for f in got] == [f.name for f in want], name
+        for g, w in zip(got, want):
+            if g.name == "sleep":
+                continue
+            assert (g.default, g.default_factory) == (
+                w.default, w.default_factory), (name, g.name)
+    assert len(_fields(faults.FaultPolicy)) == 8
+    assert len(_fields(faults.SupervisedReport)) == 10
     for name in ("crashed_workers", "round_should_fail"):
         assert (params(getattr(faults.FaultInjector, name))
                 == params(getattr(rfaults.FaultInjector, name))), name
-    assert (hasattr(rfaults, "SupervisedReport")
-            and not hasattr(faults, "SupervisedReport"))
 
 
 def test_serve_surface_matches_reference():
@@ -174,3 +183,48 @@ def test_serve_surface_matches_reference():
     corpus = params(tserve.ShardedCorpus.__init__)
     assert corpus == ["devices" if p == "mesh" else p
                       for p in params(rserve.ShardedCorpus.__init__)]
+
+
+def test_scheduler_surface_matches_reference():
+    """`AnytimeScheduler`, `SchedulerState`, `round_executor` and the
+    checkpoint format are the reference's, with `devices` in place of
+    `mesh` and `axis`."""
+    from repro.core import distributed as rdist
+    from repro.core import partition as rpart
+    from repro.core import scheduler as rsched
+    from repro_torch.core import distributed, partition, plan, scheduler
+
+    def params(fn):
+        return list(inspect.signature(fn).parameters)
+
+    def devices_for_mesh(names):
+        return [n for n in ("devices" if p == "mesh" else p
+                            for p in names) if n != "axis"]
+
+    assert scheduler.CHECKPOINT_FORMAT == rsched.CHECKPOINT_FORMAT
+    cls, ref = scheduler.AnytimeScheduler, rsched.AnytimeScheduler
+    assert params(cls.__init__) == devices_for_mesh(params(ref.__init__))
+    for name in ("step_round", "run", "run_supervised", "checkpoint",
+                 "resume", "result", "distance_profile",
+                 "distance_profile_b", "_replan"):
+        assert params(getattr(cls, name)) == params(getattr(ref, name)), name
+    assert (_fields(scheduler.SchedulerState)
+            == _fields(rsched.SchedulerState))
+    assert isinstance(scheduler.SchedulerState.fraction_done, property)
+    assert params(plan.round_executor) == devices_for_mesh(
+        params(rcore.round_executor))
+    assert tcore.round_executor is plan.round_executor
+    for name in ("make_round_fn", "make_round_fn_ab"):
+        assert params(getattr(distributed, name)) == devices_for_mesh(
+            params(getattr(rdist, name))), name
+    for name in ("live_bands", "worker_chunk_topk", "worker_chunk_ab_topk"):
+        assert (params(getattr(distributed, name))
+                == params(getattr(rdist, name))), name
+    assert (_fields(partition.AnytimePlan) == _fields(rpart.AnytimePlan))
+    for name in ("diag_work", "balanced_ranges", "range_work",
+                 "diag_work_ab", "balanced_ranges_ab", "range_work_ab",
+                 "interleaved_chunks", "interleaved_chunks_ab",
+                 "replan_remaining", "balance_badness",
+                 "balance_badness_ab"):
+        assert (params(getattr(partition, name))
+                == params(getattr(rpart, name))), name

@@ -180,7 +180,18 @@ def test_recompute_path_matches_eager():
     (dict(clamp_rows=False, backend="kernel"), "clamp_rows"),
     (dict(reseed_every=64, backend="kernel"), "reseed_every"),
 ])
-def test_not_ported_raises(kw, match):
+def test_not_ported_raises(kw, match, monkeypatch):
+    if kw.get("backend") == "distributed":
+        # distributed plans are planned since slice 9; their round executor
+        # refuses a multi-process group (ROADMAP.md §A6 (ii))
+        plan = tplan.plan_sweep(16, 300, device="cpu", **kw)
+        monkeypatch.setattr(torch.distributed, "is_initialized",
+                            lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match=match):
+            tplan.round_executor(dataclasses.replace(plan, n_bands=1),
+                                 ["cpu"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         tplan.plan_sweep(16, 300, device="cpu", **kw)
 

@@ -49,7 +49,8 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"natsa_mp.py", "flash_attn.py", "ref.py", "ops.py", "plan.py",
             "zstats.py", "matrix_profile.py", "chip_smoke.py", "corpus.py",
-            "frontend.py", "queue.py", "rounds.py", "serve.py"} <= names
+            "frontend.py", "queue.py", "rounds.py", "serve.py",
+            "partition.py", "distributed.py", "scheduler.py"} <= names
     assert repro_torch.resolve_device is resolve_device
 
 

@@ -519,18 +519,18 @@ def test_shards_over_several_devices_keep_the_answers():
 @pytest.mark.parametrize("seed", [0, 3, 7, 123])
 def test_fault_policy_and_round_hooks_match_reference(seed):
     """`FaultPolicy`'s fields, defaults and backoff, `RoundFailure`, and the
-    round hooks of a seeded schedule equal the reference's. The port's
-    policy holds the retry knobs only: the reference's supervised-scheduler
-    knobs come with `run_supervised` (ROADMAP.md §A6)."""
+    round hooks of a seeded schedule equal the reference's. The service
+    reads the retry knobs; the other four are the supervised scheduler's."""
     def fields(cls):
         return {f.name: f.default for f in dataclasses.fields(cls)
                 if f.name != "sleep"}
 
     got_fields, want_fields = (fields(tfaults.FaultPolicy),
                                fields(rfaults.FaultPolicy))
-    assert got_fields == {"max_retries": 3, "backoff_base": 0.05,
-                          "backoff_max": 2.0}
-    assert got_fields.items() <= want_fields.items()
+    assert {n: got_fields[n] for n in ("max_retries", "backoff_base",
+                                       "backoff_max")} == {
+        "max_retries": 3, "backoff_base": 0.05, "backoff_max": 2.0}
+    assert got_fields == want_fields
     base = 0.01 * (1 + seed % 5)
     for kw in ({}, {"backoff_base": base, "backoff_max": 8 * base}):
         got, want = tfaults.FaultPolicy(**kw), rfaults.FaultPolicy(**kw)

@@ -394,13 +394,14 @@ _GEOMETRY = {"self": [(300, None)], "ab": [(3969, 385), (385, 3969),
 
 def _port_refusal_is_documented(ref_plan, exc) -> bool:
     """A plan the reference makes and the port refuses must be one of the
-    refusals the port documents: the kernel's band options, or distributed
-    plans, naming their ROADMAP.md item (nonnorm and tile plans are ported
-    since slice 6, so the grid compares them field by field)."""
+    refusals the port documents: the band engine's options on the kernel,
+    or on a k = 1 distributed plan, whose chunks run the kernel (nonnorm
+    and tile plans are ported since slice 6, distributed plans since slice
+    9, so the grid compares them field by field)."""
     msg = str(exc)
-    if ref_plan.backend == "kernel":
-        return "band engine's band" in msg
-    return "ROADMAP.md §A6" in msg and ref_plan.backend == "distributed"
+    if ref_plan.backend == "distributed":
+        return ref_plan.harvest.k == 1 and "ROADMAP.md §C (15)" in msg
+    return ref_plan.backend == "kernel" and "band engine's band" in msg
 
 
 @pytest.mark.parametrize("backend", [None, "engine", "rowstream", "kernel",
@@ -447,7 +448,7 @@ def test_plan_fields_match_reference(kind, backend):
                                                    r.seed_dot)
         seen["equal"] += 1
     assert seen["value_error"] > 0, seen
-    if backend != "distributed" and (kind, backend) != ("self", "rowstream"):
+    if (kind, backend) != ("self", "rowstream"):
         assert seen["equal"] > 0, seen
 
 
