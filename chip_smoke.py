@@ -117,11 +117,37 @@ Phases, each printing one JSON line:
      killed and flipped checkpoints), each bit for bit the clean run; k = 4
      at bench-16k on the band engine's top-k chunks (no NATSA launch)
      against its f64 exact top-4, its supervised run bit for bit;
- 19. `{"kernels": [...]}`: each ported kernel with its launches on every
+ 19. `lm_vs_plain`: llama3-8b at full width, 2 layers, S = 4096 (bf16,
+     weights drawn on the card from the seed): the train-mode logits and
+     the prefill step's last logits with the flash kernel (wgmma) against
+     the same model with the kernel call swapped for its plain version,
+     prefill against train, and decode against teacher forcing (a prefill
+     of 4032 tokens copied into 4096 slots, 64 decode steps) in bf16, all
+     within 2^-5 max|logits| with greedy picks differing only at near-ties;
+     a planted GQA head-mapping fault must exceed that bound; decode
+     against teacher forcing in f32 (the fma route) within 5e-3, the
+     reference's own bound;
+ 20. `main_lm_prefill`: llama3-8b at its published width and depth
+     (7.50 B parameters, 15.0 GB bf16, drawn on the card), 6 requests of
+     32,768 tokens as one batch through `make_prefill_step` (prefill_32k
+     cut from batch 32 to 6 by memory): exactly 32 flash launches, all
+     wgmma, the kernel's output at layers 0, 16 and 31 held against the
+     plain version on the model's own q/k/v (every element within one
+     bf16 rounding), warm `prefill_s`, tokens/s, peak memory, the flash
+     kernel's ms inside the model (CUDA events around each call) and the
+     bound from the port's `model_flops` at 989 TFLOP/s;
+ 21. `main_lm_decode`: 128 requests of 3,072 tokens prefilled 4 at a time
+     (1024 flash launches; one chunk's layers 0, 16, 31 held against the
+     plain version as above) into one cache of 3,072 + 64 slots (decode_32k
+     cut in context by memory), 64 greedy steps (`greedy_next`, no kernel
+     launch), per-step ms (median, max) and tokens/s beside the per-step
+     bound from `hbm_bytes_floor`;
+ 22. `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
-     per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1), its
-     error against the plain version and its times beside its bound.
+     per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
+     32 per LM prefill batch), its error against the plain version and its
+     times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -246,6 +272,42 @@ ANYTIME_FAULT_SEED = 2
 ANYTIME_FAULTS = dict(n_rounds=64, n_workers=8, p_worker_crash=0.15,
                       p_round_failure=0.3, max_round_failures=2,
                       p_checkpoint_kill=0.2, p_checkpoint_flip=0.2)
+# the LM substrate's serving path: llama3-8b (src/repro_torch/configs/
+# llama3_8b.py) at its published width and depth, bf16, weights drawn on
+# the card from a seed (15.0 GB). Each cut below is one of memory on an
+# 80 GB card:
+# - prefill_32k (configs/base.py:162) cut from batch 32 to 6. A 32,768-
+#   token request holds 4.3 GB of KV cache and ~5.1 GB of per-layer
+#   activations (9.43 GB above the weights at batch 1 on an H100 80GB,
+#   mostly the SwiGLU's (S, 2, 14336) product): batch 6 peaks near 72 GB,
+#   7 would need ~81 GB, 32 needs 137 GB of KV cache alone.
+# - decode_32k (configs/base.py:163) keeps its batch of 128 and cuts the
+#   context from 32,768 to 3,072 prompt tokens + 64 greedy steps: its KV
+#   cache at 32,768 is 550 GB; at 3,136 slots it is 52.6 GB, with the
+#   weights ~68 GB. The prompts are prefilled 4 requests at a time into
+#   the decode cache (the prefill cache has exactly S slots).
+# - lm_vs_plain: full width, 2 layers, S = 4096, the last 64 positions
+#   decoded teacher-forced after a prefill of the rest.
+LM_ARCH, LM_PREFILL_B, LM_PREFILL_S = "llama3-8b", 6, 32768
+LM_DECODE_B, LM_DECODE_PROMPT, LM_DECODE_STEPS = 128, 3072, 64
+LM_DECODE_CHUNK = 4
+LM_PLAIN_LAYERS, LM_PLAIN_S, LM_PLAIN_DECODE = 2, 4096, 64
+# decode vs teacher forcing in f32: max|d| <= 5e-3 max|logits|, the
+# reference's own bound (tests/test_consistency.py:48)
+TOL_LM_DECODE = 5e-3
+# bf16 logits, kernel vs plain, prefill vs train, decode vs teacher forcing:
+# max|d| <= 2^-5 max|logits|, four bf16 rounding steps of the largest
+# logit. The two sides differ in attention outputs by about one bf16
+# rounding (flash's element check); that reaches the logits through ~10
+# further bf16 roundings (each rounding's error ~2^-9 of its value, summed
+# over d_model into a logit: ~2^-9 sqrt(10) of the logits' spread, ~6
+# spreads at the max over 5e8 logits) plus the logits' own rounding, up to
+# 2^-7 of the largest (5e-3 lies below one step for maxima low in their
+# binade). A CPU reading at full width, 2 layers, S = 256 put the same
+# computation run twice 1.07e-2 apart. A wrong GQA head mapping must read
+# above the bound (`planted_fault`). Greedy picks may differ only where
+# the reference side's top two logits lie within the bound.
+TOL_LM_BF16 = 2.0 ** -5
 
 
 def emit(obj) -> None:
@@ -2621,12 +2683,517 @@ def phase_anytime() -> dict:
     return out
 
 
+def _lm_model(cfg, seed: int):
+    """The port's model on the card, its weights drawn there from `seed`."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    return transformer.Transformer(cfg, device=DEVICE, generator=gen)
+
+
+def _lm_tokens(rng, cfg, b: int, s: int):
+    import torch
+
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                            .astype(np.int32)).to(DEVICE)
+
+
+def _lm_setup() -> dict:
+    """The global settings the LM phases run under, as they print them."""
+    import torch
+
+    return {"allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+class _FlashTimer:
+    """Wraps `flash_attn.flash_attention` in CUDA events while active: the
+    kernel's time inside a model run, launch by launch."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attn
+
+        self.mod, self.real, self.events = flash_attn, None, []
+
+    def __enter__(self):
+        import torch
+
+        self.real = self.mod.flash_attention
+
+        def timed(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.real(*a, **kw)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        self.mod.flash_attention = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+    def ms(self) -> list[float]:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class _FlashCheck:
+    """Wraps `flash_attn.flash_attention` while active: the calls numbered
+    in `calls` (0 is the first) are held against the plain version on the
+    very same q/k/v, each element within one bf16 rounding
+    (`flash_attn.element_ratio` <= 1, as `main_flash`). The plain version
+    launches no kernel, so the launch counts see the model's calls only."""
+
+    def __init__(self, calls):
+        from repro_torch.kernels import flash_attn
+
+        self.mod, self.real, self.calls = flash_attn, None, set(calls)
+        self.n, self.results = 0, []
+
+    def __enter__(self):
+        self.real = self.mod.flash_attention
+
+        def checked(q, k, v, **kw):
+            out = self.real(q, k, v, **kw)
+            if self.n in self.calls:
+                plain = self.mod.flash_attention_plain(
+                    q, k, v, causal=kw.get("causal", True))
+                self.results.append({
+                    "call": self.n, "shape": list(q.shape),
+                    "max_abs_err": float((out.float() - plain.float())
+                                         .abs().max()),
+                    "element_ratio": self.mod.element_ratio(out, plain)})
+                del plain
+            self.n += 1
+            return out
+
+        self.mod.flash_attention = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+    def ok(self) -> bool:
+        return (len(self.results) == len(self.calls) and all(
+            r["element_ratio"] <= 1.0 for r in self.results))
+
+
+class _PlainFlash:
+    """Replaces `flash_attn.flash_attention` by its plain version while
+    active (the same model, the kernel call swapped; no package switch).
+    With `kv_heads`, a planted fault: the repeated K/V heads are re-read as
+    if tiled (`repeat`) where GQA interleaves them (`repeat_interleave`)."""
+
+    def __init__(self, kv_heads: int | None = None):
+        self.kv_heads = kv_heads
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import flash_attn
+
+        self.mod, self.real = flash_attn, flash_attn.flash_attention
+        kvh = self.kv_heads
+
+        def plain(q, k, v, *, bq, bk, causal):
+            if kvh is not None:
+                h = q.shape[1]
+                wrong = (torch.arange(h, device=q.device) % kvh) * (h // kvh)
+                k, v = k[:, wrong].contiguous(), v[:, wrong].contiguous()
+            return flash_attn.flash_attention_plain(q, k, v, causal=causal)
+
+        flash_attn.flash_attention = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+
+def _device_time(fn, reps: int) -> dict:
+    """`reps` calls of fn under `torch.profiler`: the device's kernel time
+    per call (the profiler's kernel rows, `DeviceType.CUDA`, summed: the
+    kernels run on one stream, so they do not overlap), the five kernels
+    that take most of it, and the five operators whose kernels do.
+    Profiling slows the host, so the idle share is read against the
+    unprofiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def top(rows):
+        rows = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
+        return [[e.key[:80], e.self_device_time_total / 1e3 / reps,
+                 e.count / reps] for e in rows]
+
+    stats = prof.key_averages()
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    ops = [e for e in stats if e.device_type == DeviceType.CPU
+           and e.device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return {"reps": reps, "device_ms_per_call": dev_ms if kernels else None,
+            "top_kernels_ms_per_call": top(kernels),
+            "top_ops_ms_per_call": [
+                [e.key[:80], e.device_time_total / 1e3 / reps, e.count / reps]
+                for e in sorted(ops, key=lambda e: -e.device_time_total)[:5]]}
+
+
+def _top2_gap(logits):
+    """Per position, the largest logit minus the second (f32)."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _logits_vs(got, want, tol: float) -> dict:
+    """max|got - want| against tol x max|want|; greedy picks may differ
+    only where `want`'s top two logits lie within that bound."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    differ = g.argmax(-1) != w.argmax(-1)
+    near = _top2_gap(w) <= tol * scale
+    return {"max_abs_err": err, "max_abs_ref": scale, "rel_err": err / scale,
+            "tol_rel": tol, "greedy_differ": int(differ.sum()),
+            "greedy_differ_not_near_tie": int((differ & ~near).sum()),
+            "ok": err <= tol * scale and not bool((differ & ~near).any())}
+
+
+def _lm_decode_run(cfg, model, tokens, n_prefill: int):
+    """Prefill tokens[:, :n_prefill] through the prefill step, copy the
+    cache into one of tokens.shape[1] slots (the prefill cache has exactly
+    n_prefill), then decode the rest teacher-forced. Returns the decode
+    logits (B, T, V) for positions n_prefill..S-1."""
+    import torch
+
+    from repro_torch.models import steps, transformer
+
+    b, s = tokens.shape
+    _, pre = steps.make_prefill_step(cfg)(
+        model, {"tokens": tokens[:, :n_prefill]})
+    cache = transformer.init_cache(cfg, model, b, s)
+    for layer, c in zip(cache, pre):
+        for key in ("k", "v"):
+            layer[key][:, :n_prefill] = c[key]
+    del pre
+    dec = steps.make_decode_step(cfg)
+    out = []
+    for t in range(n_prefill, s):
+        lg, cache = dec(model, cache, {"tokens": tokens[:, t:t + 1],
+                                       "cache_len": t})
+        out.append(lg)
+    return torch.cat(out, dim=1)
+
+
+def _check_layers(cfg) -> tuple[int, ...]:
+    """The layers whose flash calls `_FlashCheck` holds: first, middle,
+    last."""
+    return (0, cfg.n_layers // 2, cfg.n_layers - 1)
+
+
+def phase_lm_prefill(model, cfg) -> dict:
+    """llama3-8b at its published width and depth: LM_PREFILL_B requests of
+    32,768 tokens as one batch through `make_prefill_step`, causal
+    attention through the flash kernel (32 launches, wgmma). The first run
+    holds the kernel at three layers against the plain version on the
+    model's own q/k/v; the second is timed (the kernel wrapped in CUDA
+    events, the peak memory read from it), the third traced; beside the
+    bound from `model_flops`. The logits and the cache are finite."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models import steps
+    from repro_torch.utils import flops
+
+    b, s = LM_PREFILL_B, LM_PREFILL_S
+    tokens = _lm_tokens(np.random.default_rng(SEED + 41), cfg, b, s)
+    step = steps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    with _FlashCheck(_check_layers(cfg)) as chk:
+        lg, cache = step(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["flash_attn"] == cfg.n_layers
+          and counts["flash_attn_routes"] == {"wgmma": cfg.n_layers,
+                                              "fma": 0}
+          and counts["natsa_mp"] == 0,
+          f"llama3-8b prefill launches {counts}, want {cfg.n_layers} wgmma")
+    check(chk.ok(), f"in-model flash vs plain: {chk.results}")
+    check(lg.shape == (b, 1, cfg.padded_vocab) and lg.dtype == torch.bfloat16
+          and bool(torch.isfinite(lg).all()), "prefill logits")
+    check(len(cache) == cfg.n_layers and all(
+        c[k].shape == (b, s, cfg.n_kv_heads, cfg.head_dim)
+        and bool(torch.isfinite(c[k]).all()) for c in cache for k in "kv"),
+        "prefill cache")
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _FlashTimer() as timer:
+        t0 = time.perf_counter()
+        lg2, cache = step(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    trace = _device_time(lambda: step(model, {"tokens": tokens}), 1)
+    if trace["device_ms_per_call"] is not None:
+        trace["idle_share"] = 1 - trace["device_ms_per_call"] / (1e3 * warm_s)
+    flash_ms = timer.ms()
+    check(len(flash_ms) == cfg.n_layers and bool(torch.isfinite(lg2).all()),
+          "the timed prefill")
+    shape = ShapeSpec(f"prefill_32k_b{b}", s, b, "prefill")
+    mf = flops.model_flops(cfg, shape)
+    t_ops = mf["total"] / BF16_PEAK
+    t_bytes = flops.hbm_bytes_floor(cfg, shape, 1) / HBM_RATE
+    bound_s = max(t_ops, t_bytes)
+    out = {"phase": "main_lm_prefill", "card": torch.cuda.get_device_name(0),
+           "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": "bfloat16",
+           "batch": b, "seq_len": s, **_lm_setup(),
+           "params": flops.param_counts(cfg)["total"],
+           "counts": counts, "flash_launches": counts["flash_attn"],
+           "launches_by_route": counts["flash_attn_routes"],
+           "in_model_vs_plain": chk.results,
+           "prefill_s": warm_s, "tokens_per_s": b * s / warm_s,
+           "peak_device_bytes": peak,
+           "model_flops": mf, "bound_s": bound_s,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "share_of_bound": bound_s / warm_s,
+           "flash_ms_in_model": sum(flash_ms),
+           "flash_ms_per_layer": [min(flash_ms), float(np.median(flash_ms)),
+                                  max(flash_ms)],
+           "flash_share": sum(flash_ms) / (1e3 * warm_s),
+           "repeat_bitwise": torch.equal(lg, lg2), "trace": trace}
+    emit(out)
+    return out
+
+
+def phase_lm_decode(model, cfg) -> dict:
+    """LM_DECODE_B requests of LM_DECODE_PROMPT tokens, prefilled
+    LM_DECODE_CHUNK at a time (32 flash launches each) into one decode cache
+    of prompt + LM_DECODE_STEPS slots, then LM_DECODE_STEPS greedy steps
+    (`greedy_next`) over the whole batch, each timed to its synchronize,
+    beside the per-step bound from `hbm_bytes_floor`. Before the timed
+    run, one chunk's prefill holds the kernel at three layers against the
+    plain version on the model's own q/k/v."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models import steps, transformer
+    from repro_torch.utils import flops
+
+    b, p, n, c = LM_DECODE_B, LM_DECODE_PROMPT, LM_DECODE_STEPS, LM_DECODE_CHUNK
+    tokens = _lm_tokens(np.random.default_rng(SEED + 42), cfg, b, p)
+    prefill = steps.make_prefill_step(cfg)
+    with _FlashCheck(_check_layers(cfg)) as chk:
+        _, pre = prefill(model, {"tokens": tokens[:c]})
+        torch.cuda.synchronize()
+    check(chk.ok(), f"in-model flash vs plain (decode prompts): "
+                    f"{chk.results}")
+    del pre
+    torch.cuda.synchronize()
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    cache_bytes = (cfg.n_layers * 2 * b * (p + n) * cfg.n_kv_heads
+                   * cfg.head_dim * 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cache = transformer.init_cache(cfg, model, b, p + n)
+    t0 = time.perf_counter()
+    last = []
+    for r0 in range(0, b, c):
+        lg, pre = prefill(model, {"tokens": tokens[r0:r0 + c]})
+        for layer, pc in zip(cache, pre):
+            for key in ("k", "v"):
+                layer[key][r0:r0 + c, :p] = pc[key]
+        last.append(lg)
+        del pre
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = read_counts()
+    want = cfg.n_layers * (b // c)
+    check(prefill_counts["flash_attn_routes"] == {"wgmma": want, "fma": 0},
+          f"chunked prefill launches {prefill_counts}, want {want} wgmma")
+    dec = steps.make_decode_step(cfg)
+    nxt = steps.greedy_next(torch.cat(last, dim=0))
+    del last
+    generated, step_ms = [nxt], []
+    torch.cuda.synchronize()
+    for i in range(n):
+        t0 = time.perf_counter()
+        lg, cache = dec(model, cache, {"tokens": nxt, "cache_len": p + i})
+        nxt = steps.greedy_next(lg)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        generated.append(nxt)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pos = [p + n]
+
+    def one_more():       # past the last slot: the ring overwrites slot 0..
+        dec(model, cache, {"tokens": nxt, "cache_len": pos[0]})
+        pos[0] += 1
+
+    trace = _device_time(one_more, 4)
+    toks = torch.cat(generated, dim=1)
+    check(counts == prefill_counts,
+          f"decode steps launched a kernel: {counts} after {prefill_counts}")
+    check(toks.shape == (b, n + 1) and toks.dtype == torch.int32
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and bool(torch.isfinite(lg).all()), "decoded tokens / logits")
+    shape = ShapeSpec(f"decode_{p + n}_b{b}", p + n, b, "decode")
+    floor_bytes = flops.hbm_bytes_floor(cfg, shape, 1)
+    t_bytes = floor_bytes / HBM_RATE
+    t_ops = flops.model_flops(cfg, shape)["total"] / BF16_PEAK
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    med = float(np.median(step_ms))
+    if trace["device_ms_per_call"] is not None:
+        trace["idle_share"] = 1 - trace["device_ms_per_call"] / med
+    out = {"phase": "main_lm_decode", "card": torch.cuda.get_device_name(0),
+           "arch": cfg.name, "batch": b, "prompt": p, "steps": n,
+           "cache_slots": p + n, "prefill_chunk": c, **_lm_setup(),
+           "cache_bytes": cache_bytes, "free_bytes_before": free_bytes,
+           "total_bytes": total_bytes,
+           "in_model_vs_plain": chk.results,
+           "prefill_s": prefill_s, "prefill_tokens_per_s": b * p / prefill_s,
+           "counts": {"natsa_mp": counts["natsa_mp"],
+                      "flash_attn": counts["flash_attn"]},
+           "launches_by_route": counts["flash_attn_routes"],
+           "step_ms": step_ms, "step_ms_median": med,
+           "step_ms_max": max(step_ms), "step_ms_first": step_ms[0],
+           "tokens_per_s": b * n / (1e-3 * sum(step_ms)),
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "floor_bytes": floor_bytes, "share_of_bound": bound_ms / med,
+           "peak_device_bytes": peak, "trace": trace,
+           "tokens_request0": toks[0, :8].tolist()}
+    emit(out)
+    return out
+
+
+def phase_lm_vs_plain() -> dict:
+    """llama3-8b at full width, 2 layers, S = 4096: logits with the kernel
+    against the same model with the kernel call replaced by the plain
+    version (bf16, wgmma), prefill against train, and decode against
+    teacher forcing in bf16 and in f32 (the fma route)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import steps, transformer
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                              n_layers=LM_PLAIN_LAYERS)
+    model = _lm_model(cfg, SEED + 43)
+    s, t = LM_PLAIN_S, LM_PLAIN_DECODE
+    tokens = _lm_tokens(np.random.default_rng(SEED + 44), cfg, 1, s)
+    out = {"phase": "lm_vs_plain", "card": torch.cuda.get_device_name(0),
+           "arch": cfg.name, "layers": cfg.n_layers, "seq_len": s,
+           "decode_steps": t, **_lm_setup()}
+    with torch.no_grad():
+        reset_counts()
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+        last, _ = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+        counts = read_counts()
+        check(counts["flash_attn_routes"] == {"wgmma": 2 * cfg.n_layers,
+                                              "fma": 0},
+              f"lm_vs_plain kernel launches {counts}")
+        with _PlainFlash():
+            plain_full, _, _ = transformer.forward(cfg, model, tokens,
+                                                   mode="train")
+            plain_last, _ = steps.make_prefill_step(cfg)(model,
+                                                         {"tokens": tokens})
+        check(read_counts() == counts, "the plain run launched a kernel")
+        with _PlainFlash(kv_heads=cfg.n_kv_heads):
+            fault_full, _, _ = transformer.forward(cfg, model, tokens,
+                                                   mode="train")
+        # the steps -inf the padded vocab columns; compare the real ones
+        v = cfg.vocab_size
+        out["train_vs_plain"] = _logits_vs(full[..., :v],
+                                           plain_full[..., :v], TOL_LM_BF16)
+        out["prefill_vs_plain"] = _logits_vs(last[..., :v],
+                                             plain_last[..., :v], TOL_LM_BF16)
+        out["prefill_vs_train"] = _logits_vs(last[..., :v],
+                                             full[:, -1:, :v], TOL_LM_BF16)
+        fault = _logits_vs(fault_full[..., :v], plain_full[..., :v],
+                           TOL_LM_BF16)
+        out["planted_fault"] = {"fault": "K/V heads tiled, not interleaved "
+                                         "(query head j reads KV head "
+                                         "j % n_kv_heads)", **fault}
+        check(not fault["ok"], f"the bound passes a planted fault: {fault}")
+        del plain_full, fault_full
+        dec = _lm_decode_run(cfg, model, tokens, s - t)
+        out["decode_vs_teacher_bf16"] = _logits_vs(dec[..., :v],
+                                                   full[:, s - t:, :v],
+                                                   TOL_LM_BF16)
+        del full, dec
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        reset_counts()
+        full32, _, _ = transformer.forward(cfg32, model, tokens, mode="train")
+        dec32 = _lm_decode_run(cfg32, model, tokens, s - t)
+        counts32 = read_counts()
+        check(counts32["flash_attn_routes"] == {"wgmma": 0,
+                                                "fma": 2 * cfg.n_layers},
+              f"f32 launches {counts32}")
+        out["decode_vs_teacher_f32"] = _logits_vs(dec32[..., :v],
+                                                  full32[:, s - t:, :v],
+                                                  TOL_LM_DECODE)
+        del full32, dec32
+    out["counts"] = {"bf16": counts, "f32": counts32}
+    for key in ("train_vs_plain", "prefill_vs_plain", "prefill_vs_train",
+                "decode_vs_teacher_bf16", "decode_vs_teacher_f32"):
+        check(out[key]["ok"], f"lm_vs_plain {key}: {out[key]}")
+    emit(out)
+    return out
+
+
+def phase_lm() -> dict:
+    """The three LM phases: the 2-layer comparison first, then the full
+    model, built once on the card for prefill and decode and freed."""
+    import torch
+
+    from repro_torch import configs
+
+    vs_plain = phase_lm_vs_plain()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _lm_model(cfg, SEED + 40)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    pre = phase_lm_prefill(model, cfg)
+    torch.cuda.empty_cache()
+    dec = phase_lm_decode(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_model", "arch": cfg.name, "build_s": build_s,
+          "weight_bytes": weights})
+    return {"prefill": pre, "decode": dec, "vs_plain": vs_plain,
+            "build_s": build_s, "weight_bytes": weights}
+
+
 def main() -> None:
     import torch
 
-    # the plain versions' f32 products run in full f32 (no TF32)
+    # the plain versions' f32 products run in full f32 (no TF32); bf16
+    # products reduce in f32 (the LM phases print both settings)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name, smi = phase_device()
     phase_build()
     small_err = phase_kernel_cases()
@@ -2646,6 +3213,8 @@ def main() -> None:
     del raw_fleet
     sv = phase_serve()
     an = phase_anytime()
+    torch.cuda.empty_cache()
+    lm = phase_lm()
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
                  "batch": bt,
                  "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
@@ -2662,7 +3231,8 @@ def main() -> None:
                  "fleet_monitor_scan": {"counts": mn["fleet"]["counts"]},
                  "serve": sv, "serve_topk": sv["k4"],
                  "anytime": an["self"], "anytime_ab": an["ab"],
-                 "anytime_topk": an["topk"]}
+                 "anytime_topk": an["topk"],
+                 "lm_prefill": lm["prefill"], "lm_decode": lm["decode"]}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -2695,7 +3265,8 @@ def main() -> None:
     }, {
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": fl["launches"],
+        "launches": (fl["launches"] + lm["prefill"]["counts"]["flash_attn"]
+                     + lm["decode"]["counts"]["flash_attn"]),
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
                              "ab_join": ab["counts"]["flash_attn"],
                              "flash_attention": fl["launches"],
@@ -2710,6 +3281,12 @@ def main() -> None:
         "library_ms": fl["library_ms"],
         "shape": (f"B={FLASH_B} H={FLASH_H} S={FLASH_S} D={FLASH_D} bf16 "
                   "causal"),
+        "lm_prefill": {f: lm["prefill"][f] for f in (
+            "flash_launches", "flash_ms_in_model", "flash_ms_per_layer",
+            "flash_share", "prefill_s", "bound_s")},
+        "lm_in_model_max_element_ratio": max(
+            r["element_ratio"] for ph in ("prefill", "decode")
+            for r in lm[ph]["in_model_vs_plain"]),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

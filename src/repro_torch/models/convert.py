@@ -1,0 +1,131 @@
+"""Weights and caches between the reference's layout and the port's.
+
+The reference keeps decoder layers stacked: parameters under
+`prefix.<i>` (unscanned) and `period.<j>` (leaves with a leading
+`n_periods` dim), caches the same way. The port keeps one entry per
+decoder layer: parameters as `layers.<i>.<...>` in a `Transformer`'s
+state dict, caches as a list of per-layer dicts. Decoder layer `i` is
+prefix `i` for `i < P`, else period position `j` of period `p`, where
+`i = P + p * len(period) + j`.
+
+Leaves cross as numpy arrays. bfloat16 crosses bit for bit through
+int16; `params_to_reference` returns bfloat16 arrays in numpy's
+registered `bfloat16` dtype (ml_dtypes', which the reference's arrays
+carry), and raises if no such dtype is registered.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.transformer import UNPORTED
+
+_TOP = ("emb", "ln_f")
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            bf16 = np.dtype("bfloat16")
+        except TypeError as e:
+            raise TypeError("a bfloat16 leaf needs numpy's bfloat16 dtype "
+                            "registered (import ml_dtypes)") from e
+        return t.view(torch.int16).numpy().view(bf16)
+    return t.numpy()
+
+
+def _layer_trees(tree) -> list:
+    """The reference's per-layer subtrees in decoder order."""
+    prefix = tree.get("prefix", {})
+    layers = [prefix[str(i)] for i in range(len(prefix))]
+    period = tree.get("period", {})
+    if period:
+        n = next(iter(tree_leaves(period)))[1].shape[0]
+        for p in range(n):
+            layers.extend(tree_map(lambda a: a[p], period[str(j)])
+                          for j in range(len(period)))
+    return layers
+
+
+def _stack_layers(layers: list, cfg) -> dict:
+    """Per-layer subtrees (numpy leaves) -> the reference's prefix/period."""
+    prefix, period, n = cfg.layer_groups()
+    out = {}
+    if prefix:
+        out["prefix"] = {str(i): layers[i] for i in range(len(prefix))}
+    if n:
+        base, width = len(prefix), len(period)
+        out["period"] = {}
+        for j in range(width):
+            group = [layers[base + p * width + j] for p in range(n)]
+            out["period"][str(j)] = _stack(group)
+    return out
+
+
+def _stack(group: list) -> dict:
+    return {k: _stack([g[k] for g in group]) if isinstance(v, dict)
+            else np.stack([g[k] for g in group]) for k, v in group[0].items()}
+
+
+def _nest(flat: dict, prefix: str) -> dict:
+    """{'a.b': x} with keys under `prefix` -> {'a': {'b': x}}."""
+    out: dict = {}
+    for key, val in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return out
+
+
+def params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The reference's parameter tree (numpy leaves) -> a `Transformer`
+    state dict."""
+    extra = set(tree) - {*_TOP, "prefix", "period"}
+    if extra:
+        raise NotImplementedError(f"parameters {sorted(extra)} belong to a "
+                                  f"family not ported yet ({UNPORTED})")
+    out = {path: _to_torch(a)
+           for path, a in tree_leaves({k: tree[k] for k in _TOP})}
+    for i, lt in enumerate(_layer_trees(tree)):
+        out.update((path, _to_torch(a))
+                   for path, a in tree_leaves(lt, f"layers.{i}."))
+    return out
+
+
+def params_to_reference(state, cfg) -> dict:
+    """A `Transformer` (or its state dict) -> the reference's parameter
+    tree of numpy arrays, stacked as `cfg.layer_groups()` says."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    flat = {k: _to_numpy(v) for k, v in state.items()}
+    top = _nest(flat, "")
+    tree = {k: top[k] for k in _TOP}
+    tree.update(_stack_layers([_nest(flat, f"layers.{i}.")
+                               for i in range(cfg.n_layers)], cfg))
+    return tree
+
+
+def cache_from_reference(tree) -> list[dict]:
+    """The reference's cache tree -> the port's per-layer list."""
+    return [tree_map(_to_torch, lt) for lt in _layer_trees(tree)]
+
+
+def cache_to_reference(cache: list[dict], cfg) -> dict:
+    """The port's per-layer cache list -> the reference's cache tree."""
+    return _stack_layers([tree_map(_to_numpy, c) for c in cache], cfg)

@@ -1,0 +1,227 @@
+"""LM assembly for the dense GQA family — port of `repro.models.transformer`.
+
+The reference scans stacked "period" parameters; here the stack is a loop
+over per-layer modules (`Transformer.layers`, one `ParamTree` each),
+and `models.convert` carries weights between the two layouts. A model is
+built on the card unless `device="cpu"` is given, its weights drawn layer
+by layer from a `torch.Generator` on that device. Every layer must be an
+`attn` mixer with a `swiglu`/`gelu` FFN (llama3-8b, qwen2-7b, qwen2.5-32b);
+other families raise `NotImplementedError` naming ROADMAP.md §A9 (iii).
+
+Modes: train (no cache), prefill (returns the KV cache), decode (one
+token; writes the cache in place, see `attention.gqa_decode`). The output
+head is tied: `x @ emb.T`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import attention, moe
+from repro_torch.models.common import (
+    ParamSpec, ParamTree, Tree, empty_params, init_params, make_norm,
+    tree_map,
+)
+from repro_torch.utils.device import resolve_device
+
+UNPORTED = "ROADMAP.md §A9 (iii)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every layer of `cfg` is dense GQA."""
+    parts = set()
+    if cfg.mrope_sections:
+        parts.add("M-RoPE")
+    if cfg.is_encdec or cfg.learned_pos:
+        parts.add("an encoder-decoder with cross-attention")
+    for i in range(cfg.n_layers):
+        ls = cfg.layer_kind(i)
+        if ls.mixer != "attn":
+            parts.add(f"the {ls.mixer} mixer")
+        if ls.ffn not in ("swiglu", "gelu"):
+            parts.add(f"the {ls.ffn} FFN")
+    if parts:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(sorted(parts))} is not ported yet "
+            f"({UNPORTED}); this package builds the dense GQA family only")
+
+
+# ---------------------------------------------------------------------------
+# param specs
+
+
+def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> Tree:
+    if ls.mixer != "attn" or ls.ffn not in ("swiglu", "gelu"):
+        raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
+    norm_spec, _ = make_norm(cfg.norm_type, cfg.d_model)
+    return {"ln1": norm_spec, "mixer": attention.gqa_spec(cfg),
+            "ln2": norm_spec,
+            "ffn": (moe.swiglu_spec(cfg.d_model, ls.d_ff) if ls.ffn == "swiglu"
+                    else moe.gelu_mlp_spec(cfg.d_model, ls.d_ff))}
+
+
+def model_spec(cfg: ModelConfig) -> Tree:
+    """The port's parameter tree: `emb`, `ln_f`, then `layers.<i>` per
+    decoder layer (the reference stacks these under `period`)."""
+    check_supported(cfg)
+    norm_spec, _ = make_norm(cfg.norm_type, cfg.d_model)
+    return {
+        "emb": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                         init="normal", scale=0.02),
+        "ln_f": norm_spec,
+        "layers": {str(i): layer_param_spec(cfg, cfg.layer_kind(i))
+                   for i in range(cfg.n_layers)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# cache specs
+
+
+def layer_cache_spec(cfg: ModelConfig, ls: LayerSpec, b: int, s: int) -> Tree:
+    if ls.mixer != "attn":
+        raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ParamSpec(shape, axes, dtype=cfg.dtype),
+            "v": ParamSpec(shape, axes, dtype=cfg.dtype)}
+
+
+def cache_spec(cfg: ModelConfig, b: int, s: int) -> list[Tree]:
+    """One layer cache spec per decoder layer."""
+    return [layer_cache_spec(cfg, cfg.layer_kind(i), b, s)
+            for i in range(cfg.n_layers)]
+
+
+def init_cache(cfg: ModelConfig, params, b: int, s: int) -> list[Tree]:
+    """Zero-initialized decode cache on the parameters' device."""
+    dev = params["emb"].device
+    return [tree_map(lambda ps: torch.zeros(ps.shape, dtype=ps.dtype,
+                                            device=dev), ls)
+            for ls in cache_spec(cfg, b, s)]
+
+
+# ---------------------------------------------------------------------------
+# modules
+
+
+class Transformer(ParamTree):
+    """The model: `emb`, `ln_f` and `layers` (an `nn.ModuleList` of one
+    `ParamTree` per decoder layer: `ln1`, `mixer`, `ln2`, `ffn`), named as
+    `model_spec`'s tree.
+
+    `device=None` is the card. With a `generator` (a `torch.Generator` on
+    that device) every weight is drawn by the reference's init rules,
+    layer by layer in the tree's order; without one the weights are left
+    uninitialized, for `load_state_dict` (see `models.convert`)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: torch.Generator | None = None):
+        spec = model_spec(cfg)
+        dev = resolve_device(device)
+        if generator is not None and generator.device.type != dev.type:
+            raise ValueError(f"the generator lies on {generator.device}, "
+                             f"the model on {dev}")
+
+        def make(sp):
+            return (init_params(generator, sp) if generator is not None
+                    else empty_params(sp, dev))
+
+        super().__init__(make({k: spec[k] for k in ("emb", "ln_f")}))
+        self.cfg = cfg
+        self.layers = nn.ModuleList(ParamTree(make(spec["layers"][str(i)]))
+                                    for i in range(cfg.n_layers))
+
+    def forward(self, tokens, **kw):
+        return forward(self.cfg, self, tokens, **kw)
+
+
+# ---------------------------------------------------------------------------
+# layer application
+
+
+def _norm(cfg):
+    return make_norm(cfg.norm_type, cfg.d_model)[1]
+
+
+def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
+                positions=None, cache: Tree | None = None, cache_len=None):
+    """Returns (x, aux, new_cache); aux is 0.0 (no MoE layer is ported)."""
+    norm = _norm(cfg)
+    new_cache: Tree = {}
+    h = norm(x, p["ln1"])
+    if mode == "train":
+        o = attention.gqa_full(cfg, p["mixer"], h, positions, causal=True)
+    elif mode == "prefill":
+        o, new_cache = attention.gqa_prefill(cfg, p["mixer"], h, positions)
+    elif mode == "decode":
+        o, new_cache = attention.gqa_decode(cfg, p["mixer"], h, cache,
+                                            cache_len, positions)
+    else:
+        raise ValueError(f"mode must be train, prefill or decode, got {mode}")
+    x = x + o
+    ffn = moe.swiglu if ls.ffn == "swiglu" else moe.gelu_mlp
+    return x + ffn(p["ffn"], norm(x, p["ln2"])), 0.0, new_cache
+
+
+# ---------------------------------------------------------------------------
+# full model
+
+
+def _positions(tokens):
+    b, s = tokens.shape[-2:]
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device).expand(b, s)
+
+
+def _require_increasing(positions) -> None:
+    """Causal attention masks by index (`attention._flash`); that equals
+    the reference's position mask only where positions rise along each
+    row."""
+    if positions.shape[-1] > 1 and not bool(
+            (positions[..., 1:] > positions[..., :-1]).all()):
+        raise ValueError("causal attention masks by index: positions must "
+                         "increase strictly along each sequence")
+
+
+def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
+          cache: list[Tree] | None = None, cache_len=None):
+    """Everything before the output head: (final-normed hidden states
+    (B, S, D), aux, new_cache). new_cache is a list of per-layer {k, v}
+    for prefill and decode, empty for train. Positions a caller passes
+    for train or prefill must rise along each row (checked once here)."""
+    x = params["emb"][tokens.long()].to(cfg.dtype)
+    if positions is None:
+        if mode == "decode":
+            positions = torch.full((tokens.shape[0], 1), int(cache_len),
+                                   dtype=torch.int32, device=tokens.device)
+        else:
+            positions = _positions(tokens)
+    elif mode != "decode":
+        _require_increasing(positions)
+    new_cache: list[Tree] = []
+    for i, layer in enumerate(params["layers"]):
+        x, _, nc = apply_layer(cfg, cfg.layer_kind(i), layer, x, mode=mode,
+                               positions=positions,
+                               cache=None if cache is None else cache[i],
+                               cache_len=cache_len)
+        if mode in ("prefill", "decode"):
+            new_cache.append(nc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
+    return _norm(cfg)(x, params["ln_f"]), aux, new_cache
+
+
+def head(cfg: ModelConfig, params, x):
+    """The tied output head: x @ emb.T in the model dtype."""
+    return x @ params["emb"].T.to(cfg.dtype)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
+            cache: list[Tree] | None = None, cache_len=None):
+    """Unified forward. Returns (logits (B, S, V), aux, new_cache)."""
+    x, aux, new_cache = trunk(cfg, params, tokens, mode=mode,
+                              positions=positions, cache=cache,
+                              cache_len=cache_len)
+    return head(cfg, params, x), aux, new_cache

@@ -4,7 +4,10 @@ reference's, name for name; the `ProfileResult`, `HarvestSpec`,
 `PrecisionSpec`, analytics, fault, scheduler and `serve` surfaces are the
 reference's; `SweepPlan`'s fields are the reference's with `interpret` as
 `device`, and a list of `devices` takes the place of a `mesh` (and its
-`axis`) wherever the reference takes one.
+`axis`) wherever the reference takes one. The LM substrate's modules
+(`configs`, `models`, `utils.flops`) have the reference's names but those
+`LM_NOT_PORTED` lists, with their signatures less a sharding context and
+whisper's encoder inputs.
 """
 
 import dataclasses
@@ -228,3 +231,58 @@ def test_scheduler_surface_matches_reference():
                  "balance_badness_ab"):
         assert (params(getattr(partition, name))
                 == params(getattr(rpart, name))), name
+
+
+# the LM substrate (ROADMAP.md §A9): reference names the port has no
+# counterpart for yet -> the item that brings them
+LM_NOT_PORTED = {
+    "configs.base": {}, "configs": {}, "utils.flops": {},
+    "models.common": {
+        "TP_RULES": "§A9 (iv)", "FSDP_RULES": "§A9 (iv)",
+        "EP_RULES": "§A9 (iv)", "logical_to_pspec": "§A9 (iv)",
+        "sanitize_pspec": "§A9 (iv)", "sanitized_pspecs": "§A9 (iv)",
+        "tree_pspecs": "§A9 (iv)", "tree_shapes": "§A9 (iv)",
+        "apply_mrope": "§A9 (iii)"},
+    "models.moe": {"ShardCtx": "§A9 (iv)", "moe_spec": "§A9 (iii)",
+                   "moe_ffn": "§A9 (iii)"},
+    "models.attention": {"mla_spec": "§A9 (iii)", "mla_full": "§A9 (iii)",
+                         "mla_decode": "§A9 (iii)",
+                         "cross_spec": "§A9 (iii)",
+                         "cross_full": "§A9 (iii)"},
+    "models.transformer": {"encode": "§A9 (iii)"},
+    "models.steps": {"logits_pspec": "§A9 (iv)",
+                     "make_train_step": "§A9 (ii)"},
+}
+# parameters the port's functions drop: a sharding context (a mesh,
+# §A9 (iv)), whisper's encoder inputs (§A9 (iii)) and the reference's
+# attention query chunks (one flash call tiles its own way, ROADMAP.md
+# §C (16)); `init_params` takes a torch.Generator where the reference
+# takes a key
+LM_DROPPED = {"ctx", "frames", "enc_out", "bidir", "q_chunk"}
+
+
+@pytest.mark.parametrize("mod", sorted(LM_NOT_PORTED))
+def test_lm_surface_matches_reference(mod):
+    import importlib
+
+    ref = importlib.import_module(f"repro.{mod}")
+    port = importlib.import_module(f"repro_torch.{mod}")
+    public = {n for n, v in vars(ref).items() if not n.startswith("_")
+              and (inspect.isfunction(v) or inspect.isclass(v)
+                   or isinstance(v, dict))
+              and getattr(v, "__module__", ref.__name__) == ref.__name__}
+    missing = {n for n in public if not hasattr(port, n)}
+    assert missing == set(LM_NOT_PORTED[mod])
+    for name in sorted(public - missing):
+        r, p = getattr(ref, name), getattr(port, name)
+        if inspect.isclass(r) and dataclasses.is_dataclass(r):
+            assert _fields(p) == _fields(r), (mod, name)
+        if not inspect.isfunction(r):
+            continue
+        want = [{"key": "gen"}.get(a, a)
+                for a in inspect.signature(r).parameters
+                if a not in LM_DROPPED]
+        got = list(inspect.signature(p).parameters)
+        if name == "rope_freqs":
+            want.append("device")
+        assert got == want, (mod, name)

@@ -50,7 +50,10 @@ def test_scan_covers_the_package():
     assert {"natsa_mp.py", "flash_attn.py", "ref.py", "ops.py", "plan.py",
             "zstats.py", "matrix_profile.py", "chip_smoke.py", "corpus.py",
             "frontend.py", "queue.py", "rounds.py", "serve.py",
-            "partition.py", "distributed.py", "scheduler.py"} <= names
+            "partition.py", "distributed.py", "scheduler.py", "base.py",
+            "llama3_8b.py", "qwen2_7b.py", "qwen2_5_32b.py", "common.py",
+            "moe.py", "attention.py", "transformer.py", "steps.py",
+            "convert.py", "flops.py"} <= names
     assert repro_torch.resolve_device is resolve_device
 
 

@@ -1,0 +1,154 @@
+"""The port's own serving contracts, as the reference's
+`tests/test_consistency.py` states them for its models, on the dense GQA
+smoke configs (CPU, f32 over bf16 weights):
+
+- decoding token by token from a zero cache reproduces the full-sequence
+  causal forward, max|Δ| / max|logits| < 5e-3 (the reference's bound);
+- prefill logits equal train logits within 3e-3 (the reference's);
+- a prefill into a cache of S + T slots followed by T greedy steps gives
+  the reference's greedy tokens, step by step (f32: no near-ties in these
+  seeded cases, checked by the top-two gap).
+
+The `gpu`-marked test holds the first contract on the card, where prefill
+runs the flash kernel and decode runs torch ops.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro.models import steps as rsteps
+from repro.models import transformer as rtransformer
+from repro.models.common import init_params as rinit
+from repro_torch import configs
+from repro_torch.kernels import flash_attn
+from repro_torch.models import convert, steps, transformer
+
+DENSE = ["llama3-8b", "qwen2-7b", "qwen2.5-32b"]
+T = 12
+
+
+def _model(cfg, seed, device="cpu"):
+    return transformer.Transformer(
+        cfg, device=device, generator=torch.Generator(device).manual_seed(seed))
+
+
+def _tokens(cfg, b, t, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, t)).astype(np.int32))
+
+
+def _decode_vs_teacher_forcing(cfg, model, tokens):
+    b, t = tokens.shape
+    with torch.no_grad():
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+    cache = transformer.init_cache(cfg, model, b, t)
+    dec = steps.make_decode_step(cfg)
+    errs = []
+    for i in range(t):
+        lg, cache = dec(model, cache, {"tokens": tokens[:, i:i + 1],
+                                       "cache_len": i})
+        errs.append(float((lg[:, 0].float() - full[:, i].float()).abs().max()))
+    return max(errs) / (float(full.float().abs().max()) + 1e-6), errs
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_teacher_forcing(arch):
+    cfg = configs.get_smoke(arch)
+    rel, errs = _decode_vs_teacher_forcing(cfg, _model(cfg, 7),
+                                           _tokens(cfg, 2, T, seed=8))
+    assert rel < 5e-3, f"{arch}: rel err {rel:.2e} ({errs})"
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_matches_train(arch):
+    cfg = configs.get_smoke(arch)
+    model = _model(cfg, 3)
+    tokens = _tokens(cfg, 2, T, seed=4)
+    with torch.no_grad():
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+        pre, _, cache = transformer.forward(cfg, model, tokens,
+                                            mode="prefill")
+    np.testing.assert_allclose(pre.numpy(), full.numpy(), rtol=3e-3,
+                               atol=3e-3)
+    assert len(cache) == cfg.n_layers and cache[0]["k"].shape == (
+        2, T, cfg.n_kv_heads, cfg.head_dim)
+    last, _ = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    np.testing.assert_allclose(last.numpy(), full[:, -1:].numpy(),
+                               rtol=3e-3, atol=3e-3)
+
+
+def _greedy(prefill, decode, greedy, init_cache, params, tokens, n_new):
+    """Prefill, copy the cache into S + n_new slots, decode greedily."""
+    lg, cache = prefill(params, tokens)
+    out, gaps = [], []
+    cache = init_cache(cache)
+    s = tokens.shape[1]
+    for i in range(n_new):
+        nxt = greedy(lg)
+        top2 = np.sort(np.asarray(lg, np.float32)[:, -1], axis=-1)[:, -2:]
+        gaps.append(float((top2[:, 1] - top2[:, 0]).min()))
+        out.append(np.asarray(nxt))
+        lg, cache = decode(params, cache, nxt, s + i)
+    return np.concatenate(out, axis=1), min(gaps)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_greedy_decode_matches_reference(arch):
+    rcfg, cfg = rconfigs.get_smoke(arch), configs.get_smoke(arch)
+    params = rinit(jax.random.key(9), rtransformer.model_spec(rcfg))
+    model = transformer.Transformer(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_reference(
+        jax.tree.map(np.asarray, params)))
+    tok = _tokens(cfg, 2, 10, seed=10)
+    n_new = 6
+    b, s = tok.shape
+
+    def ref_grow(cache):
+        big = rtransformer.init_cache(rcfg, params, b, s + n_new)
+        return jax.tree.map(lambda z, c: z.at[..., :s, :, :].set(c), big,
+                            cache)
+
+    rpre, rdec = (rsteps.make_prefill_step(rcfg, None),
+                  jax.jit(rsteps.make_decode_step(rcfg, None)))
+    ref, ref_gap = _greedy(
+        lambda p, t: rpre(p, {"tokens": jnp.asarray(t.numpy())}),
+        lambda p, c, nxt, n: rdec(p, c, {"tokens": nxt,
+                                         "cache_len": jnp.int32(n)}),
+        rsteps.greedy_next, ref_grow, params, tok, n_new)
+
+    def port_grow(cache):
+        big = transformer.init_cache(cfg, model, b, s + n_new)
+        for layer, c in zip(big, cache):
+            for key in ("k", "v"):
+                layer[key][:, :s] = c[key]
+        return big
+
+    pre, dec = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    got, _ = _greedy(
+        lambda p, t: pre(p, {"tokens": t}),
+        lambda p, c, nxt, n: dec(p, c, {"tokens": nxt, "cache_len": n}),
+        steps.greedy_next, port_grow, model, tok, n_new)
+    assert ref_gap > 1e-3, "a near-tie: the seeded case must not have one"
+    assert got.dtype == np.int32 and np.array_equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_decode_matches_teacher_forcing_on_card():
+    """On the card, where the teacher-forced forward runs the flash kernel
+    (fma route in f32) and decode runs torch ops: the same 5e-3 bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc) to run the flash kernel")
+    cfg = dataclasses.replace(configs.get_smoke("llama3-8b"), d_model=256,
+                              n_heads=4, head_dim=64)
+    model = _model(cfg, 7, device="cuda")
+    before = flash_attn.LAUNCHES
+    rel, errs = _decode_vs_teacher_forcing(
+        cfg, model, _tokens(cfg, 2, 64, seed=8).cuda())
+    assert flash_attn.LAUNCHES - before == cfg.n_layers
+    assert rel < 5e-3, f"rel err {rel:.2e} ({errs})"
