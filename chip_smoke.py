@@ -142,12 +142,33 @@ Phases, each printing one JSON line:
      cut in context by memory), 64 greedy steps (`greedy_next`, no kernel
      launch), per-step ms (median, max) and tokens/s beside the per-step
      bound from `hbm_bytes_floor`;
- 22. `{"kernels": [...]}`: each ported kernel with its launches on every
+ 22. `lm_train_vs_plain`: llama3-8b at full width, 2 layers, 2 sequences
+     of 4096 as 2 microbatches, remat on: one `make_train_step` through
+     the flash kernel against the same step with the kernel call swapped
+     for its plain version (autograd through it), in bf16 (wgmma) and f32
+     (fma): loss, grad norm, each leaf's m and parameter move within
+     `TOL_TRAIN`; a planted fault (the kernel's output cut off from
+     autograd) must fail them;
+ 23. `main_lm_train`: train_4k at llama3-8b's published width, cut to
+     LM_TRAIN_LAYERS layers and 16 sequences of 4096 as 8 microbatches
+     (AdamW's 16 bytes a parameter), remat on: the warm step launches
+     flash exactly twice per layer per microbatch (forward and
+     recompute, all wgmma), every sampled leaf moves, and the flash
+     Function's dq, dk, dv at layers 0 and last are held against autograd
+     through the plain version on the model's own q/k/v (a planted fault
+     must fail); then `train_step_s` (median, max of LM_TRAIN_STEPS),
+     tokens/s, the bound from `model_flops` at 989 TFLOP/s, peak memory,
+     flash's and the plain backward's ms inside the step (CUDA events),
+     and a traced step; `main_lm_train_cli`: `launch.train.main` at
+     `--smoke` on the card, 4 steps straight and 4 killed after the
+     checkpoint of step 2 and resumed (final loss within 1e-4);
+ 24. `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
      per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
-     32 per LM prefill batch), its error against the plain version and its
-     times beside its bound.
+     32 per LM prefill batch, 2 per layer per microbatch of a train
+     step), its error against the plain version and its times beside its
+     bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -308,6 +329,55 @@ TOL_LM_DECODE = 5e-3
 # above the bound (`planted_fault`). Greedy picks may differ only where
 # the reference side's top two logits lie within the bound.
 TOL_LM_BF16 = 2.0 ** -5
+
+# The training path (ROADMAP.md §A9 (ii)): train_4k (configs/base.py:166)
+# at llama3-8b's published width, remat on, one AdamW step per call of
+# `make_train_step`. Each cut is one of memory or time on an 80 GB card:
+# - depth: AdamW keeps bf16 params and grads, f32 m and v and an f32
+#   gradient accumulator (microbatches > 1), 16 bytes a parameter: 120 GB
+#   at 32 layers (7.50 B). A layer holds 218.1 M parameters (3.49 GB of
+#   state), the tied embedding 525.3 M (8.41 GB). At 12 layers the step
+#   peaked at 66.74 GB on an H100 80GB HBM3 (state 50.3 GB, the rest one
+#   microbatch's f32 logits and their gradient, one layer's recompute);
+#   15 layers (3.58 B parameters) peak near 77.2 GB and leave ~8 GB of the
+#   card's 85.0 GB free, 16 would leave ~4;
+# - batch: global batch 256 cut to 16, as 8 microbatches of 2 sequences of
+#   4096 (the sequence stays), so that a step stays in seconds;
+# - steps: one warm step (with the in-model gradient checks), then
+#   LM_TRAIN_STEPS timed.
+LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_B, LM_TRAIN_MB = 15, 4096, 16, 8
+LM_TRAIN_STEPS = 4
+LM_TRAIN_LR = 3e-4          # AdamWConfig's default, warmup of one step
+# lm_train_vs_plain: 2 layers, 2 sequences of 4096 as 2 microbatches.
+LM_TRAIN_PLAIN_B, LM_TRAIN_PLAIN_MB = 2, 2
+# the kernel's train step against the same step with the kernel call
+# swapped for the plain version. The first bounds were fixed before any
+# run by reasoning (bf16: loss 2^-7, grad norm 2^-6, m 2^-4, move 0.5; f32:
+# 1e-4, 1e-3, 2^-7, 0.1); the sound runs then read, the same in each run
+# on an H100 80GB HBM3 at 700 W, bf16: loss 6.9e-6, grad norm 4.4e-5, m
+# 1.17e-2, move 0.112; f32: 0, 7.1e-8, 2.6e-4, 3.1e-3. The bounds are now
+# a few times those (about 2-25x), so that a backward wrong in magnitude
+# but right in sign fails grad norm and moves too, not only m. bf16: the
+# two forwards differ by one bf16 rounding of the attention output; AdamW's
+# first step moves each parameter by ~lr * sign(g), so where the two
+# gradients differ in sign (a share f of a leaf) the moves differ by 2 lr,
+# a relative L2 of ~2 sqrt(f): 0.112 is f ~ 0.3%, 0.25 holds to f ~ 1.6%.
+# f32 (the fma route, f32 compute over bf16 weights): the gradients round
+# to bf16 leaf by leaf. The planted fault, the kernel's output cut off
+# from autograd (the state before the flash Function: q, k and v get no
+# gradient through attention), read grad norm 0.193, m 1.0, move 1.0.
+TOL_TRAIN = {"bfloat16": {"loss": 1e-4, "grad_norm": 1e-3,
+                          "m_rel_l2": 2.0 ** -4, "update_rel_l2": 0.25},
+             "float32": {"loss": 1e-5, "grad_norm": 1e-6,
+                         "m_rel_l2": 1e-3, "update_rel_l2": 1e-2}}
+# the flash Function's dq, dk, dv on the model's own q/k/v (layers 0 and
+# last) against autograd through the plain version: the same f32 products
+# summed in other orders, each rounded once to bf16, so every element
+# within one bf16 rounding (2^-7 |plain|) plus the f32 sums' noise, ~4e-6
+# of the summed terms over S = 4096 rows (2^-14 max|plain| leaves ~15x).
+# A planted fault, head 0's causal mask dropped from the backward, must
+# read > 1.
+GRAD_REL, GRAD_ABS_OF_MAX = 2.0 ** -7, 2.0 ** -14
 
 
 def emit(obj) -> None:
@@ -3186,6 +3256,488 @@ def phase_lm() -> dict:
             "build_s": build_s, "weight_bytes": weights}
 
 
+def _grad_ratio(got, plain) -> float:
+    """max over elements of |got - plain| / (2^-7 |plain| + 2^-14
+    max|plain|): at most 1 when the gradients agree within the bound."""
+    g, p = got.float(), plain.float()
+    return float(((g - p).abs() / (GRAD_REL * p.abs() + GRAD_ABS_OF_MAX
+                                   * float(p.abs().max()))).max())
+
+
+class _FlashGradCheck:
+    """Wraps `flash_attn.flash_attention` while active and keeps the q, k,
+    v of the calls numbered in `calls` (0 is the first). `results()` then
+    holds the flash Function's dq, dk, dv for a seeded bf16 dout against
+    autograd through `flash_attention_plain` on the same tensors, and the
+    same for a planted fault (head 0's causal mask dropped from the
+    backward), which must fail. Call it after the path's launches are read:
+    its own forward launches the kernel again."""
+
+    def __init__(self, calls):
+        from repro_torch.kernels import flash_attn
+
+        self.mod, self.real, self.calls = flash_attn, None, set(calls)
+        self.n, self.kept = 0, []
+
+    def __enter__(self):
+        self.real = self.mod.flash_attention
+
+        def keep(q, k, v, **kw):
+            if self.n in self.calls:
+                self.kept.append((self.n, q.detach(), k.detach(), v.detach(),
+                                  kw))
+            self.n += 1
+            return self.real(q, k, v, **kw)
+
+        self.mod.flash_attention = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+    def results(self) -> list[dict]:
+        import torch
+
+        fa, out = self.mod, []
+        for n, q, k, v, kw in self.kept:
+            causal = kw.get("causal", True)
+            gen = torch.Generator(q.device).manual_seed(SEED + 50 + n)
+            dout = torch.randn(q.shape, generator=gen, device=q.device,
+                               dtype=torch.float32).to(q.dtype)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = fa.flash_attention(*leaves, **kw)
+            fn = type(o.grad_fn).__name__
+            got = torch.autograd.grad(o, leaves, dout)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            plain = torch.autograd.grad(
+                fa.flash_attention_plain(*leaves, causal=causal), leaves,
+                dout)
+            bad = [g.clone() for g in got]
+            one = fa.flash_attention_backward_plain(
+                *(x[:1, :1].contiguous() for x in (q, k, v, dout)), False)
+            for b, g in zip(bad, one):
+                b[:1, :1] = g
+            out.append({"call": n, "shape": list(q.shape), "grad_fn": fn,
+                        **{f"d{x}_ratio": _grad_ratio(g, pl)
+                           for x, g, pl in zip("qkv", got, plain)},
+                        **{f"d{x}_max_abs_err": float(
+                            (g.float() - pl.float()).abs().max())
+                           for x, g, pl in zip("qkv", got, plain)},
+                        "planted_fault": {
+                            "fault": "head 0's causal mask dropped from "
+                                     "the backward",
+                            **{f"d{x}_ratio": _grad_ratio(b, pl)
+                               for x, b, pl in zip("qkv", bad, plain)}}})
+            del got, plain, bad, leaves
+        return out
+
+    @staticmethod
+    def ok(results) -> bool:
+        return all(r["grad_fn"] == "_FlashFunctionBackward"
+                   and max(r[f"d{x}_ratio"] for x in "qkv") <= 1.0
+                   and max(r["planted_fault"][f"d{x}_ratio"]
+                           for x in "qkv") > 1.0 for r in results)
+
+
+class _BackwardTimer:
+    """Wraps `flash_attn.flash_attention_backward_plain` (what the flash
+    Function's backward calls) in CUDA events while active."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attn
+
+        self.mod, self.real, self.events = flash_attn, None, []
+
+    def __enter__(self):
+        import torch
+
+        self.real = self.mod.flash_attention_backward_plain
+
+        def timed(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.real(*a, **kw)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        self.mod.flash_attention_backward_plain = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention_backward_plain = self.real
+
+    def ms(self) -> list[float]:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class _DetachedFlash:
+    """A planted fault: the kernel's output cut off from autograd, as
+    `flash_attention` was before its Function (q, k and v get no gradient
+    through attention)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn
+
+        self.mod, self.real = flash_attn, flash_attn.flash_attention
+        real = self.real
+
+        def detached(q, k, v, **kw):
+            return real(q.detach(), k.detach(), v.detach(), **kw)
+
+        flash_attn.flash_attention = detached
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+
+def _train_batch(cfg, b: int, s: int, step: int, seed: int):
+    """`TokenStream`'s batch `step` on the card."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed))
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in stream.batch(step).items()}
+
+
+def _train_opt():
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1,
+                             total_steps=100)
+
+
+def _one_train_step(cfg, batch, mb: int, seed: int, swap=None) -> dict:
+    """A fresh model from `seed` and one train step, under `swap` (a
+    context replacing the flash call) if given: the metrics, each leaf's
+    m (the step's gradient) and move (new - old, f32) on the card."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    model = _lm_model(cfg, seed)
+    old = {k: p.detach().float() for k, p in adamw.leaves(model).items()}
+    state = adamw.init_state(model)
+    with swap if swap is not None else contextlib.nullcontext():
+        _, state, met = steps.make_train_step(cfg, _train_opt(),
+                                              microbatches=mb)(
+            model, state, batch)
+    torch.cuda.synchronize()
+    out = {"metrics": {k: float(v) for k, v in met.items()},
+           "m": adamw.leaves(state["m"]),
+           "move": {k: p.detach().float() - old[k]
+                    for k, p in adamw.leaves(model).items()}}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    den = float(b.double().norm())
+    return float((a.double() - b.double()).norm()) / max(den, 1e-30)
+
+
+def _train_vs(got: dict, want: dict, tol: dict) -> dict:
+    """Loss and grad norm relative, each leaf's m and move in relative
+    L2 (their maxima over the leaves, and which leaf), against `tol`."""
+    out = {}
+    for key in ("loss", "grad_norm"):
+        g, w = got["metrics"][key], want["metrics"][key]
+        out[key] = {"got": g, "want": w, "rel": abs(g - w) / abs(w)}
+    for key, name in (("m", "m_rel_l2"), ("move", "update_rel_l2")):
+        rel = {p: _rel_l2(got[key][p], want[key][p]) for p in want[key]}
+        worst = max(rel, key=rel.get)
+        out[name] = {"max": rel[worst], "leaf": worst,
+                     "median": float(np.median(list(rel.values())))}
+    out["tol"] = tol
+    out["ok"] = (out["loss"]["rel"] <= tol["loss"]
+                 and out["grad_norm"]["rel"] <= tol["grad_norm"]
+                 and out["m_rel_l2"]["max"] <= tol["m_rel_l2"]
+                 and out["update_rel_l2"]["max"] <= tol["update_rel_l2"])
+    return out
+
+
+def phase_lm_train_vs_plain() -> dict:
+    """llama3-8b at full width, 2 layers, 2 sequences of 4096 as 2
+    microbatches: one train step through the flash kernel against the same
+    step with the kernel call swapped for its plain version (autograd
+    through it), in bf16 (wgmma) and f32 (fma); a planted fault (the
+    kernel's output cut off from autograd) must fail the same bounds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                              n_layers=LM_PLAIN_LAYERS)
+    b, s, mb = LM_TRAIN_PLAIN_B, LM_TRAIN_S, LM_TRAIN_PLAIN_MB
+    batch = _train_batch(cfg, b, s, 0, SEED + 46)
+    out = {"phase": "lm_train_vs_plain",
+           "card": torch.cuda.get_device_name(0), "arch": cfg.name,
+           "layers": cfg.n_layers, "batch": b, "seq_len": s,
+           "microbatches": mb, "remat": cfg.remat, **_lm_setup()}
+    want_launches = 2 * cfg.n_layers * mb        # forward and recompute
+    for dt, route in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
+        c = dataclasses.replace(cfg, dtype=dt)
+        name = str(dt).removeprefix("torch.")
+        reset_counts()
+        kern = _one_train_step(c, batch, mb, SEED + 47)
+        counts = read_counts()
+        check(counts["flash_attn_routes"] == {
+            "wgmma": want_launches if route == "wgmma" else 0,
+            "fma": want_launches if route == "fma" else 0}
+            and counts["natsa_mp"] == 0,
+            f"lm_train_vs_plain {name} launches {counts}")
+        plain = _one_train_step(c, batch, mb, SEED + 47, _PlainFlash())
+        check(read_counts() == counts, "the plain run launched a kernel")
+        res = _train_vs(kern, plain, TOL_TRAIN[name])
+        res["counts"] = counts
+        res["loss"]["finite"] = bool(np.isfinite(kern["metrics"]["loss"]))
+        if dt == torch.bfloat16:
+            fault = _one_train_step(c, batch, mb, SEED + 47,
+                                    _DetachedFlash())
+            res["planted_fault"] = {
+                "fault": "the kernel's output cut off from autograd",
+                **_train_vs(fault, plain, TOL_TRAIN[name])}
+            check(not res["planted_fault"]["ok"],
+                  f"the train bounds pass a planted fault: "
+                  f"{res['planted_fault']}")
+            del fault
+        out[name] = res
+        check(res["ok"] and res["loss"]["finite"],
+              f"lm_train_vs_plain {name}: {res}")
+        del kern, plain
+    emit(out)
+    return out
+
+
+def _moved(before: dict, model) -> dict:
+    """For each sampled leaf, whether any of its sampled elements moved."""
+    from repro_torch.optim import adamw
+
+    now = adamw.leaves(model)
+    return {k: bool((now[k].detach()[tuple(slice(0, 64) for _ in v.shape)]
+                     != v).any()) for k, v in before.items()}
+
+
+def phase_lm_train() -> dict:
+    """llama3-8b at its published width, LM_TRAIN_LAYERS layers, remat on:
+    train_4k cut to 16 sequences of 4096 as 8 microbatches of 2, through
+    `make_train_step` and AdamW on the card. The warm step holds the flash
+    Function's gradients at layers 0 and last against autograd through the
+    plain version on the model's own q/k/v (with a planted fault) and
+    checks the exact flash launches (2 per layer per microbatch: the
+    forward and the recompute, all wgmma) and that every sampled leaf
+    moved; LM_TRAIN_STEPS timed steps follow (the flash calls and the plain
+    backward by CUDA events), then a traced one."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    from repro_torch.utils import flops
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                              n_layers=LM_TRAIN_LAYERS)
+    check(cfg.remat, "full configs train with remat")
+    b, s, mb = LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_MB
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    model = _lm_model(cfg, SEED + 48)
+    state = adamw.init_state(model)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    step = steps.make_train_step(cfg, _train_opt(), microbatches=mb)
+    batches = [_train_batch(cfg, b, s, i, SEED + 49)
+               for i in range(LM_TRAIN_STEPS + 2)]
+    sample = {k: p.detach()[tuple(slice(0, 64) for _ in p.shape)].clone()
+              for k, p in adamw.leaves(model).items()
+              if k.startswith(("emb", "ln_f", "layers.0.",
+                               f"layers.{cfg.n_layers - 1}."))}
+    reset_counts()
+    with _FlashGradCheck((0, cfg.n_layers - 1)) as chk:
+        t0 = time.perf_counter()
+        _, _, met = step(model, state, batches[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = 2 * cfg.n_layers * mb
+    check(counts["flash_attn_routes"] == {"wgmma": want, "fma": 0}
+          and counts["natsa_mp"] == 0,
+          f"train step launches {counts}, want {want} wgmma")
+    moved = _moved(sample, model)
+    losses = [float(met["loss"])]
+    gnorms = [float(met["grad_norm"])]
+    check(np.isfinite(losses[0]) and gnorms[0] > 0 and all(moved.values()),
+          f"first step: loss {losses[0]}, grad norm {gnorms[0]}, "
+          f"unmoved {[k for k, v in moved.items() if not v]}")
+    grads = chk.results()
+    check(len(grads) == 2 and _FlashGradCheck.ok(grads),
+          f"in-model flash gradients vs plain: {grads}")
+    step_s, flash_ms, bwd_ms = [], [], []
+    for i in range(LM_TRAIN_STEPS):
+        with _FlashTimer() as ft, _BackwardTimer() as bt:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, met = step(model, state, batches[1 + i])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        flash_ms.append(sum(ft.ms()))
+        bwd_ms.append(sum(bt.ms()))
+        check(len(ft.ms()) == want and len(bt.ms()) == cfg.n_layers * mb,
+              "the timed step's flash calls")
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    med = float(np.median(step_s))
+    trace = _device_time(lambda: step(model, state, batches[-1]), 1)
+    if trace["device_ms_per_call"] is not None:
+        trace["idle_share"] = 1 - trace["device_ms_per_call"] / (1e3 * med)
+    check(all(np.isfinite(losses)) and min(gnorms) > 0
+          and int(state["step"]) == LM_TRAIN_STEPS + 2,
+          f"losses {losses}, grad norms {gnorms}")
+    shape = ShapeSpec(f"train_4k_b{b}", s, b, "train")
+    mf = flops.model_flops(cfg, shape)
+    bound_s = mf["total"] / BF16_PEAK
+    out = {"phase": "main_lm_train", "card": torch.cuda.get_device_name(0),
+           "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": "bfloat16",
+           "remat": cfg.remat, "global_batch": b, "seq_len": s,
+           "microbatches": mb, **_lm_setup(),
+           "params": flops.param_counts(cfg)["total"],
+           "state_bytes": state_bytes, "counts": counts,
+           "flash_launches": counts["flash_attn"],
+           "launches_by_route": counts["flash_attn_routes"],
+           "in_model_grads_vs_plain": grads, "moved": moved,
+           "first_step_s": first_s, "train_step_s": step_s,
+           "train_step_s_median": med, "train_step_s_max": max(step_s),
+           "tokens_per_s": b * s / med, "losses": losses,
+           "grad_norms": gnorms, "peak_device_bytes": peak,
+           "peak_reserved_bytes": peak_reserved,
+           "free_bytes_before": free_bytes, "total_bytes": total_bytes,
+           "model_flops": mf, "bound_s": bound_s, "bound_by": "operations",
+           "share_of_bound": bound_s / med,
+           "flash_ms_in_step": flash_ms,
+           "flash_ms_per_launch": float(np.median(flash_ms)) / want,
+           "plain_backward_ms_in_step": bwd_ms,
+           "plain_backward_ms_per_call": float(np.median(bwd_ms))
+           / (cfg.n_layers * mb),
+           "flash_share": float(np.median(flash_ms)) / (1e3 * med),
+           "plain_backward_share": float(np.median(bwd_ms)) / (1e3 * med),
+           "trace": trace}
+    emit(out)
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+class _PlantedCrash(Exception):
+    pass
+
+
+class _CrashAt:
+    """`launch.train`'s TokenStream raises at `step` while active: a run
+    killed after its checkpoint of that step."""
+
+    def __init__(self, step: int):
+        self.step = step
+
+    def __enter__(self):
+        from repro_torch.launch import train
+
+        self.cls = train.TokenStream
+        self.real, at = self.cls.batch, self.step
+
+        def batch(this, s, **kw):
+            if s == at:
+                raise _PlantedCrash(f"planted crash at step {s}")
+            return self.real(this, s, **kw)
+
+        self.cls.batch = batch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.batch = self.real
+
+
+def phase_lm_train_cli() -> dict:
+    """`launch.train.main` at `--smoke` on the card: 4 steps straight, and
+    4 steps killed after the checkpoint of step 2 then resumed; the
+    resumed run's final loss within 1e-4 of the straight one (bit for bit
+    reported: the embedding's backward accumulates with atomics)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+
+    tmp = tempfile.mkdtemp(prefix="train_")
+    argv = ["--arch", LM_ARCH, "--smoke", "--steps", "4", "--batch", "8",
+            "--seq", "128", "--ckpt-every", "2", "--log-every", "1",
+            "--device", DEVICE]
+    log = io.StringIO()
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            straight = train.main(argv + ["--ckpt-dir", f"{tmp}/a"])
+            straight_s = time.perf_counter() - t0
+            try:
+                with _CrashAt(2):
+                    train.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+                crashed = False
+            except _PlantedCrash:
+                crashed = True
+            resumed = train.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+        counts = read_counts()
+
+        def arrays(d):
+            with np.load(f"{d}/step_{4:010d}/arrays.npz") as z:
+                return {k: z[k].tobytes() for k in z.files}
+
+        bitwise = arrays(f"{tmp}/a") == arrays(f"{tmp}/b")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text = log.getvalue()
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(LM_ARCH)
+    want = cfg.n_layers * (4 + 2 + 2)     # remat off at smoke size: 1 a layer
+    out = {"phase": "main_lm_train_cli",
+           "card": torch.cuda.get_device_name(0), "argv": argv,
+           "straight_loss": straight, "resumed_loss": resumed,
+           "crashed_at_2": crashed,
+           "resumed_from_2": "[train] resumed from step 2" in text,
+           "bitwise_final_checkpoint": bitwise, "straight_s": straight_s,
+           "counts": counts, "log_tail": text.splitlines()[-3:]}
+    check(crashed and out["resumed_from_2"]
+          and abs(straight - resumed) <= 1e-4 and np.isfinite(straight),
+          f"trainer resume: {out}")
+    check(counts["flash_attn_routes"] == {"wgmma": 0, "fma": want}
+          and counts["natsa_mp"] == 0,
+          f"trainer launches {counts}, want {want} fma")
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3215,6 +3767,10 @@ def main() -> None:
     an = phase_anytime()
     torch.cuda.empty_cache()
     lm = phase_lm()
+    torch.cuda.empty_cache()
+    phase_lm_train_vs_plain()
+    tr = phase_lm_train()
+    cli = phase_lm_train_cli()
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
                  "batch": bt,
                  "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
@@ -3232,7 +3788,8 @@ def main() -> None:
                  "serve": sv, "serve_topk": sv["k4"],
                  "anytime": an["self"], "anytime_ab": an["ab"],
                  "anytime_topk": an["topk"],
-                 "lm_prefill": lm["prefill"], "lm_decode": lm["decode"]}
+                 "lm_prefill": lm["prefill"], "lm_decode": lm["decode"],
+                 "lm_train": tr, "lm_train_cli": cli}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -3266,7 +3823,9 @@ def main() -> None:
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": (fl["launches"] + lm["prefill"]["counts"]["flash_attn"]
-                     + lm["decode"]["counts"]["flash_attn"]),
+                     + lm["decode"]["counts"]["flash_attn"]
+                     + tr["counts"]["flash_attn"]
+                     + cli["counts"]["flash_attn"]),
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
                              "ab_join": ab["counts"]["flash_attn"],
                              "flash_attention": fl["launches"],
@@ -3287,6 +3846,14 @@ def main() -> None:
         "lm_in_model_max_element_ratio": max(
             r["element_ratio"] for ph in ("prefill", "decode")
             for r in lm[ph]["in_model_vs_plain"]),
+        "lm_train": {f: tr[f] for f in (
+            "flash_launches", "flash_ms_per_launch",
+            "plain_backward_ms_per_call", "train_step_s_median",
+            "tokens_per_s", "bound_s", "share_of_bound",
+            "peak_device_bytes")},
+        "lm_train_in_model_max_grad_ratio": max(
+            r[f"d{x}_ratio"] for r in tr["in_model_grads_vs_plain"]
+            for x in "qkv"),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -207,11 +207,12 @@ def _like(a: np.ndarray, leaf):
     """Array `a` in the type of the `tree_like` leaf: a tensor of its dtype
     on its device, or a numpy array of its dtype."""
     if isinstance(leaf, torch.Tensor):
+        # `ascontiguousarray` turns a 0-d array into a 1-d one
+        a = np.ascontiguousarray(a).reshape(a.shape)
         if leaf.dtype == torch.bfloat16 and a.dtype == np.dtype("V2"):
-            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+            t = torch.from_numpy(a.view(np.int16))
             return t.view(torch.bfloat16).to(leaf.device)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=leaf.device, dtype=leaf.dtype)
+        return torch.from_numpy(a).to(device=leaf.device, dtype=leaf.dtype)
     if hasattr(leaf, "dtype"):
         return a.astype(leaf.dtype)
     return a

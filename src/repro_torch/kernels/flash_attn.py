@@ -15,8 +15,14 @@ for the PV product), float32 and other bfloat16 head dims the CUDA-core
 kernel ("fma": f32 products). Both take head dims up to 128. `bq` and `bk`
 keep the reference's contract (`S` divisible by both) but only set the
 TPU kernel's order of summation: each CUDA kernel tiles its own way,
-masking a partial last tile. There is no backward, as the reference has
-none.
+masking a partial last tile.
+
+`flash_attention` is differentiable on every device through one
+`torch.autograd.Function`: its forward is the dispatch above (the kernel
+on a CUDA tensor, the plain version on a CPU one), its backward
+`flash_attention_backward_plain`, plain PyTorch on both devices, which
+recomputes P in f32 from the saved q, k, v. The reference has no backward
+kernel: it differentiates its grouped einsum (ROADMAP.md §C (19)).
 """
 
 from __future__ import annotations
@@ -100,11 +106,29 @@ def flash_attention(q, k, v, *, bq: int = 128, bk: int = 128,
     """q/k/v: (B, H, S, D) -> (B, H, S, D), S divisible by bq and bk.
 
     A CPU tensor runs the plain version; any other device goes to the CUDA
-    kernel, which raises for what it cannot run."""
+    kernel, which raises for what it cannot run. Either way the output
+    carries `_FlashFunction`'s node when an input requires grad."""
     _check(q, k, v, bq, bk)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    return _flash_attention_cuda(q, k, v, causal=causal)
+    return _FlashFunction.apply(q, k, v, causal)
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
+    `flash_attention_backward_plain` on the saved q, k, v, on both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal)
+        return _flash_attention_cuda(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward_plain(
+            q, k, v, dout.contiguous(), ctx.causal), None)
 
 
 def _flash_attention_cuda(q, k, v, *, causal):
@@ -182,3 +206,48 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             p = torch.softmax(logits, dim=-1)
             of[g, r0:r1] = (p @ vg[:kend]).to(q.dtype)
     return out
+
+
+def flash_attention_backward_plain(q, k, v, dout, causal: bool = True, *,
+                                   logit_bytes: int = PLAIN_LOGIT_BYTES):
+    """(dq, dk, dv) of `flash_attention` at (q, k, v) for the output's
+    gradient `dout`, in plain PyTorch on any device, each rounded once to
+    the input dtype. P is recomputed in f32 as the plain version computes
+    it (the causal mask at NEG_INF, a softmax over logits divided by
+    sqrt(D)), for groups of heads or chunks of query rows whose logits stay
+    under `logit_bytes`; then dV = Pᵀ dO, dP = dO Vᵀ,
+    dS = P ∘ (dP − rowsum(P ∘ dP)), dQ = dS K / sqrt(D) and
+    dK = dSᵀ Q / sqrt(D). dK and dV sum over row chunks in f32."""
+    b, h, s, d = q.shape
+    f32, scale = torch.float32, d ** 0.5
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    qf, kf, vf, dof = (x.reshape(b * h, s, d) for x in (q, k, v, dout))
+    dqf, dkf, dvf = (x.view(b * h, s, d) for x in grads)
+    # whole heads per step while one head's logits fit, else row chunks
+    rows = max(1, min(s, logit_bytes // (4 * max(s, 1))))
+    heads = max(1, logit_bytes // (4 * max(s, 1) ** 2)) if rows == s else 1
+    for g0 in range(0, b * h, heads):
+        g1 = min(b * h, g0 + heads)
+        kg, vg = kf[g0:g1].to(f32), vf[g0:g1].to(f32)
+        dk = torch.zeros_like(kg)
+        dv = torch.zeros_like(vg)
+        for r0 in range(0, s, rows):
+            r1 = min(s, r0 + rows)
+            kend = r1 if causal else s
+            qc, doc = qf[g0:g1, r0:r1].to(f32), dof[g0:g1, r0:r1].to(f32)
+            logits = (qc @ kg[:, :kend].transpose(1, 2)) / scale
+            if causal:
+                qpos = torch.arange(r0, r1, device=q.device)[:, None]
+                kpos = torch.arange(kend, device=q.device)[None, :]
+                logits = logits.masked_fill(kpos > qpos, NEG_INF)
+            p = torch.softmax(logits, dim=-1)
+            del logits
+            dv[:, :kend] += p.transpose(1, 2) @ doc
+            dp = doc @ vg[:, :kend].transpose(1, 2)
+            ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+            del p, dp
+            dqf[g0:g1, r0:r1] = ((ds @ kg[:, :kend]) / scale).to(q.dtype)
+            dk[:, :kend] += ds.transpose(1, 2) @ qc
+        dkf[g0:g1] = (dk / scale).to(k.dtype)
+        dvf[g0:g1] = dv.to(v.dtype)
+    return tuple(grads)

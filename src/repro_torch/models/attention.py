@@ -9,7 +9,9 @@ Three execution modes share weights:
 The full and prefill modes run the port's flash-attention function
 (`kernels.flash_attn.flash_attention`) on every device: q as (B, H, S, D),
 K/V repeated from `n_kv_heads` to `n_heads`, each contiguous. A CUDA
-tensor launches the kernel; a CPU tensor runs its plain version. The
+tensor launches the kernel; a CPU tensor runs its plain version; both are
+differentiable through the same plain backward (ROADMAP.md §C (19)), and
+autograd of the repeat sums dK and dV back onto the KV heads. The
 function masks by index, which equals the reference's position mask where
 positions rise along each row; `transformer.trunk` checks positions a
 caller passes (ROADMAP.md §C (16)). The reference's `q_chunk` query chunks

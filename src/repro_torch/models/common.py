@@ -50,6 +50,18 @@ def tree_leaves(tree, prefix: str = ""):
             yield path, val
 
 
+def tree_nest(flat: dict) -> Tree:
+    """{'a.b': x} -> {'a': {'b': x}}: the inverse of `tree_leaves`."""
+    out: dict = {}
+    for path, val in flat.items():
+        *head, last = path.split(".")
+        node = out
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = val
+    return out
+
+
 def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}

@@ -8,10 +8,11 @@ state dict, caches as a list of per-layer dicts. Decoder layer `i` is
 prefix `i` for `i < P`, else period position `j` of period `p`, where
 `i = P + p * len(period) + j`.
 
-Leaves cross as numpy arrays. bfloat16 crosses bit for bit through
-int16; `params_to_reference` returns bfloat16 arrays in numpy's
+Into the port, leaves may be numpy arrays (the reference's) or tensors
+(a checkpoint's); out of it, they are host tensors. `_to_numpy` carries
+such a tensor to numpy, bfloat16 bit for bit through int16 into numpy's
 registered `bfloat16` dtype (ml_dtypes', which the reference's arrays
-carry), and raises if no such dtype is registered.
+carry); it raises if no such dtype is registered.
 """
 
 from __future__ import annotations
@@ -20,13 +21,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import tree_leaves, tree_map, tree_nest
 from repro_torch.models.transformer import UNPORTED
 
 _TOP = ("emb", "ln_f")
 
 
 def _to_torch(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a).view(np.int16)).view(
@@ -60,7 +63,7 @@ def _layer_trees(tree) -> list:
 
 
 def _stack_layers(layers: list, cfg) -> dict:
-    """Per-layer subtrees (numpy leaves) -> the reference's prefix/period."""
+    """Per-layer subtrees of tensors -> the reference's prefix/period."""
     prefix, period, n = cfg.layer_groups()
     out = {}
     if prefix:
@@ -76,21 +79,14 @@ def _stack_layers(layers: list, cfg) -> dict:
 
 def _stack(group: list) -> dict:
     return {k: _stack([g[k] for g in group]) if isinstance(v, dict)
-            else np.stack([g[k] for g in group]) for k, v in group[0].items()}
+            else torch.stack([g[k] for g in group])
+            for k, v in group[0].items()}
 
 
 def _nest(flat: dict, prefix: str) -> dict:
     """{'a.b': x} with keys under `prefix` -> {'a': {'b': x}}."""
-    out: dict = {}
-    for key, val in flat.items():
-        if not key.startswith(prefix):
-            continue
-        *path, leaf = key[len(prefix):].split(".")
-        node = out
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = val
-    return out
+    return tree_nest({k[len(prefix):]: v for k, v in flat.items()
+                      if k.startswith(prefix)})
 
 
 def params_from_reference(tree) -> dict[str, torch.Tensor]:
@@ -109,11 +105,12 @@ def params_from_reference(tree) -> dict[str, torch.Tensor]:
 
 
 def params_to_reference(state, cfg) -> dict:
-    """A `Transformer` (or its state dict) -> the reference's parameter
-    tree of numpy arrays, stacked as `cfg.layer_groups()` says."""
+    """A `Transformer` (or its state dict, or any dict keyed by its
+    parameter paths) -> the reference's parameter tree of host tensors,
+    stacked as `cfg.layer_groups()` says."""
     if isinstance(state, nn.Module):
         state = state.state_dict()
-    flat = {k: _to_numpy(v) for k, v in state.items()}
+    flat = {k: v.detach().cpu() for k, v in state.items()}
     top = _nest(flat, "")
     tree = {k: top[k] for k in _TOP}
     tree.update(_stack_layers([_nest(flat, f"layers.{i}.")
@@ -127,5 +124,23 @@ def cache_from_reference(tree) -> list[dict]:
 
 
 def cache_to_reference(cache: list[dict], cfg) -> dict:
-    """The port's per-layer cache list -> the reference's cache tree."""
-    return _stack_layers([tree_map(_to_numpy, c) for c in cache], cfg)
+    """The port's per-layer cache list -> the reference's cache tree of
+    host tensors."""
+    return _stack_layers([tree_map(lambda t: t.detach().cpu(), c)
+                          for c in cache], cfg)
+
+
+def decayed_paths(state, cfg) -> set[str]:
+    """The parameter paths AdamW decays: those whose leaf has rank >= 2 in
+    the reference's layout, where a decoder layer stacked under `period`
+    carries the leading `n_periods` dim and one under `prefix` does not
+    (`cfg.layer_groups()`)."""
+    if isinstance(state, nn.Module):
+        state = dict(state.named_parameters())
+    first = len(cfg.layer_groups()[0])
+
+    def rank(path, t):
+        head, _, rest = path.partition(".")
+        stacked = head == "layers" and int(rest.split(".")[0]) >= first
+        return t.dim() + stacked
+    return {k for k, t in state.items() if rank(k, t) >= 2}

@@ -10,13 +10,18 @@ other families raise `NotImplementedError` naming ROADMAP.md §A9 (iii).
 
 Modes: train (no cache), prefill (returns the KV cache), decode (one
 token; writes the cache in place, see `attention.gqa_decode`). The output
-head is tied: `x @ emb.T`.
+head is tied: `x @ emb.T`. With `cfg.remat`, a train-mode forward under
+autograd recomputes each layer in the backward
+(`torch.utils.checkpoint`, non-reentrant): only the layer's input is
+kept, as the reference's `jax.checkpoint(..., nothing_saveable)` per
+layer does.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention, moe
@@ -191,7 +196,9 @@ def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
     """Everything before the output head: (final-normed hidden states
     (B, S, D), aux, new_cache). new_cache is a list of per-layer {k, v}
     for prefill and decode, empty for train. Positions a caller passes
-    for train or prefill must rise along each row (checked once here)."""
+    for train or prefill must rise along each row (checked once here).
+    With `cfg.remat`, a train forward under autograd checkpoints each
+    layer."""
     x = params["emb"][tokens.long()].to(cfg.dtype)
     if positions is None:
         if mode == "decode":
@@ -202,8 +209,15 @@ def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
     elif mode != "decode":
         _require_increasing(positions)
     new_cache: list[Tree] = []
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for i, layer in enumerate(params["layers"]):
-        x, _, nc = apply_layer(cfg, cfg.layer_kind(i), layer, x, mode=mode,
+        ls = cfg.layer_kind(i)
+        if remat:
+            x = checkpoint(lambda x, ls=ls, layer=layer: apply_layer(
+                cfg, ls, layer, x, mode=mode, positions=positions)[0],
+                x, use_reentrant=False)
+            continue
+        x, _, nc = apply_layer(cfg, ls, layer, x, mode=mode,
                                positions=positions,
                                cache=None if cache is None else cache[i],
                                cache_len=cache_len)

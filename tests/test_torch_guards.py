@@ -366,3 +366,26 @@ def test_tile_sweep_ignores_tf32_on_card():
     c_host = 1.0 - host.p.double() ** 2 / 128.0
     tol = corr_tolerance(as_precision("bf16"), 64)
     assert float((c_card - c_host).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_flash_function_on_card():
+    """On the card `flash_attention`'s forward is the kernel and its output
+    carries the autograd Function's node; the gradients are the plain
+    backward's on the same tensors, bit for bit, on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc) to run the flash kernel")
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (1, 4, 256, 64)).astype(np.float32)).to("cuda", dtype)
+            for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = flash_attn.LAUNCHES
+        out = flash_attn.flash_attention(*leaves)
+        assert flash_attn.LAUNCHES == before + 1
+        assert type(out.grad_fn).__name__ == "_FlashFunctionBackward"
+        got = torch.autograd.grad(out, leaves, do)
+        want = flash_attn.flash_attention_backward_plain(q, k, v, do, True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -46,6 +46,12 @@ def _tol(ref):
     return 1e-4 * (1.0 + float(np.abs(ref).max()))
 
 
+def _numpy(tree):
+    """A tree of host tensors from `convert` -> numpy leaves, bfloat16 as
+    ml_dtypes' (the reference's arrays' dtype)."""
+    return jax.tree.map(convert._to_numpy, tree)
+
+
 def _dtype_name(dt) -> str:
     if isinstance(dt, torch.dtype):
         return str(dt).removeprefix("torch.")
@@ -307,7 +313,7 @@ def test_prefill_logits_and_cache_match_reference(arch, t):
     np.testing.assert_allclose(got_lg.numpy(), ref_lg, rtol=0,
                                atol=_tol(ref_lg))
     ref_c = jax.tree.map(np.asarray, ref_cache)
-    got_c = convert.cache_to_reference(got_cache, cfg)
+    got_c = _numpy(convert.cache_to_reference(got_cache, cfg))
     assert jax.tree.structure(got_c) == jax.tree.structure(ref_c)
     for g, r in zip(jax.tree.leaves(got_c), jax.tree.leaves(ref_c)):
         assert g.shape == r.shape == (cfg.n_layers, 2, t, cfg.n_kv_heads,
@@ -347,7 +353,7 @@ def test_decode_step_logits_and_cache_match_reference(arch, s):
     assert got_lg.shape == ref_lg.shape == (2, 1, cfg.padded_vocab)
     np.testing.assert_allclose(got_lg.numpy(), ref_lg, rtol=0,
                                atol=_tol(ref_lg))
-    got_c = convert.cache_to_reference(got_new, cfg)
+    got_c = _numpy(convert.cache_to_reference(got_new, cfg))
     for g, r, before in zip(jax.tree.leaves(got_c),
                             jax.tree.leaves(jax.tree.map(np.asarray, ref_new)),
                             jax.tree.leaves(ref_cache)):
@@ -361,7 +367,7 @@ def test_decode_step_logits_and_cache_match_reference(arch, s):
 def test_weights_round_trip_both_ways(arch):
     rcfg, params, cfg, model = _ref_model(arch)
     ref = jax.tree.map(np.asarray, params)
-    back = convert.params_to_reference(model, cfg)
+    back = _numpy(convert.params_to_reference(model, cfg))
     assert jax.tree.structure(back) == jax.tree.structure(ref)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(ref)):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -370,7 +376,7 @@ def test_weights_round_trip_both_ways(arch):
     drawn = transformer.Transformer(
         cfg, device="cpu", generator=torch.Generator("cpu").manual_seed(11))
     rparams = jax.tree.map(jnp.asarray,
-                           convert.params_to_reference(drawn, cfg))
+                           _numpy(convert.params_to_reference(drawn, cfg)))
     tok = _tokens(cfg, 1, 12)
     ref_lg, _, _ = rtransformer.forward(rcfg, rparams, jnp.asarray(tok),
                                         mode="train")
