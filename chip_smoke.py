@@ -162,11 +162,32 @@ Phases, each printing one JSON line:
      and a traced step; `main_lm_train_cli`: `launch.train.main` at
      `--smoke` on the card, 4 steps straight and 4 killed after the
      checkpoint of step 2 and resumed (final loss within 1e-4);
- 24. `{"kernels": [...]}`: each ported kernel with its launches on every
+ 24. `lm_moe_vs_plain`: olmoe-1b-7b and deepseek-v2-lite-16b at full
+     width, 2 layers (deepseek's dense first layer and one MLA + MoE
+     layer): olmoe's bf16 train-mode logits over S = 4096 with the flash
+     kernel against the plain attention, within 2^-5 max|logits| over the
+     tokens whose routing (expert set or kept mask at any layer) is the
+     same on both sides, at most FLIP_SHARE_MAX of them flipping, the
+     kernel held per element at both layers; both models in f32 at 1024
+     tokens (dropless): prefill against train and decode against teacher
+     forcing within 5e-3; planted faults (expert e's down projection
+     read from expert e + 1, at every MoE layer and at the last only,
+     which reroutes no token) must fail each bound, the last-layer one
+     through the logit bound itself;
+ 25. `main_lm_moe`: olmoe-1b-7b at its published width and depth (6.82 B
+     parameters), prefill_32k at LM_MOE_PREFILL_B requests (16 wgmma
+     flash launches, layers 0, 8, 15 held against the plain version, the
+     traced run bit for bit the timed one) and decode_32k (128 requests
+     of 3,072 + 64 greedy steps), with the fields of phases 20 and 21;
+ 26. `main_lm_mla`: deepseek-v2-lite-16b at its published width and depth
+     (15.50 B parameters): one request of 32,768 tokens, then 128 of
+     3,072 + 64 greedy steps; MLA is torch ops, so no kernel launches;
+ 27. `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
      per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
-     32 per LM prefill batch, 2 per layer per microbatch of a train
+     one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
+     olmoe-1b-7b, 0 for MLA), 2 per layer per microbatch of a train
      step), its error against the plain version and its times beside its
      bound.
 Every kernel launch counter is set to 0 just before each path and read just
@@ -329,6 +350,43 @@ TOL_LM_DECODE = 5e-3
 # above the bound (`planted_fault`). Greedy picks may differ only where
 # the reference side's top two logits lie within the bound.
 TOL_LM_BF16 = 2.0 ** -5
+
+# The MoE and MLA families (ROADMAP.md §A9 (iii)) at their published
+# widths (src/repro_torch/configs/olmoe_1b_7b.py, deepseek_v2_lite.py),
+# bf16, weights drawn on the card from a seed; the cuts, of memory or time:
+# - olmoe-1b-7b (16 layers, d 2048, 16 heads of 128, 64 experts top-8 of
+#   d_ff 1024; 6.82 B parameters, 13.6 GB) prefill_32k cut from batch 32
+#   to LM_MOE_PREFILL_B by memory. A request of 32,768 tokens holds 4.29 GB
+#   of KV cache and, inside each MoE layer (all B·S tokens dispatched at
+#   once, capacity 1.25·n·8/64 + 1), the (64, capacity, 2048) bf16
+#   buckets, their (·, 2, 1024) products and the (8n, 2048) combine. On
+#   an H100 80GB HBM3 batch 8 peaked at 73.94 GB: 7.54 GB a request above
+#   13.64 GB of weights, so 9 would peak near 81.5 GB of the card's 85.0
+#   (within 4 GB of it, which llama3-8b's cut declines too);
+# - deepseek-v2-lite-16b (27 layers, MLA r = 512, dr = 64, dn = dv = 128,
+#   64 experts top-6 + 2 shared of d_ff 1408, layer 0 dense of d_ff
+#   10,944; 15.50 B parameters, 31.0 GB) prefill_32k cut to batch
+#   LM_MLA_PREFILL_B by time: MLA's f32 logits are ~1e13 FLOP a layer per
+#   request with the masked key blocks skipped; one request took 11.4 s
+#   (peak 35.4 GB), and the phase runs it twice;
+# - decode_32k for both as llama3-8b's: 128 requests of 3,072 + 64 slots
+#   (olmoe's KV cache 52.6 GB, deepseek's latent cache 12.5 GB);
+# - lm_moe_vs_plain: full width, 2 layers (deepseek's dense first layer and
+#   one MLA + MoE layer); olmoe in bf16 at S = 4096 (the capacity regime),
+#   both in f32 at B·S = 1024 so that every dispatch is dropless (beyond
+#   1024 tokens the teacher-forced pass drops entries past capacity and
+#   decode never does: the two differ by design).
+LM_MOE_ARCH, LM_MLA_ARCH = "olmoe-1b-7b", "deepseek-v2-lite-16b"
+LM_MOE_PREFILL_B, LM_MLA_PREFILL_B = 8, 1
+LM_MOE_LAYERS, LM_MOE_PLAIN_S, LM_MOE_F32_S, LM_MOE_DECODE = 2, 4096, 1024, 64
+# Routing flips: a router logit that moves by one bf16 rounding (kernel
+# vs plain attention) can change a token's top-8 or, through the slots, a
+# later token's kept mask. Such tokens are counted and left out of the
+# logit bound; at most this share of them may flip. By the code ~1-2% a
+# layer: the 8th and 9th of 64 router logits (std ~1) lie ~0.08 apart,
+# bf16 noise moves them ~1e-3, plus one kept mask at capacity per flip. A
+# planted fault flips most tokens of the layer after it.
+FLIP_SHARE_MAX = 0.1
 
 # The training path (ROADMAP.md §A9 (ii)): train_4k (configs/base.py:166)
 # at llama3-8b's published width, remat on, one AdamW step per call of
@@ -2939,6 +2997,14 @@ def _logits_vs(got, want, tol: float) -> dict:
             "ok": err <= tol * scale and not bool((differ & ~near).any())}
 
 
+def _copy_cache(cache, pre, rows: slice, n: int) -> None:
+    """Copy a prefill cache `pre` (n slots) into rows `rows`, slots 0..n-1,
+    of the decode cache `cache` (either layout: {k, v} or {ckv, kr})."""
+    for layer, pc in zip(cache, pre):
+        for key, t in pc.items():
+            layer[key][rows, :n] = t
+
+
 def _lm_decode_run(cfg, model, tokens, n_prefill: int):
     """Prefill tokens[:, :n_prefill] through the prefill step, copy the
     cache into one of tokens.shape[1] slots (the prefill cache has exactly
@@ -2952,9 +3018,7 @@ def _lm_decode_run(cfg, model, tokens, n_prefill: int):
     _, pre = steps.make_prefill_step(cfg)(
         model, {"tokens": tokens[:, :n_prefill]})
     cache = transformer.init_cache(cfg, model, b, s)
-    for layer, c in zip(cache, pre):
-        for key in ("k", "v"):
-            layer[key][:, :n_prefill] = c[key]
+    _copy_cache(cache, pre, slice(None), n_prefill)
     del pre
     dec = steps.make_decode_step(cfg)
     out = []
@@ -2965,74 +3029,104 @@ def _lm_decode_run(cfg, model, tokens, n_prefill: int):
     return torch.cat(out, dim=1)
 
 
+def _attn_layers(cfg) -> int:
+    """Layers whose attention runs the flash kernel (GQA; MLA runs none)."""
+    return sum(cfg.layer_kind(i).mixer == "attn" for i in range(cfg.n_layers))
+
+
 def _check_layers(cfg) -> tuple[int, ...]:
     """The layers whose flash calls `_FlashCheck` holds: first, middle,
-    last."""
+    last (flash call i is layer i's: every layer is GQA); none for MLA."""
+    if _attn_layers(cfg) == 0:
+        return ()
     return (0, cfg.n_layers // 2, cfg.n_layers - 1)
 
 
-def phase_lm_prefill(model, cfg) -> dict:
-    """llama3-8b at its published width and depth: LM_PREFILL_B requests of
-    32,768 tokens as one batch through `make_prefill_step`, causal
-    attention through the flash kernel (32 launches, wgmma). The first run
-    holds the kernel at three layers against the plain version on the
-    model's own q/k/v; the second is timed (the kernel wrapped in CUDA
-    events, the peak memory read from it), the third traced; beside the
-    bound from `model_flops`. The logits and the cache are finite."""
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def _cache_ok(cfg, cache, b: int, s: int) -> bool:
+    """Every layer's cache has its spec's shape and finite values."""
+    from repro_torch.models import transformer
+
+    return len(cache) == cfg.n_layers and all(
+        tuple(c[k].shape) == sp.shape and _finite(c[k])
+        for i, c in enumerate(cache)
+        for k, sp in transformer.layer_cache_spec(
+            cfg, cfg.layer_kind(i), b, s).items())
+
+
+def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
+                     batch: int = LM_PREFILL_B,
+                     seed: int = SEED + 41) -> dict:
+    """A model at its published width and depth: `batch` requests of
+    32,768 tokens as one batch through `make_prefill_step`, each GQA
+    layer's causal attention through the flash kernel (one wgmma launch a
+    layer; MLA launches none). With flash calls, a first run holds the
+    kernel at three layers against the plain version on the model's own
+    q/k/v; then a run counted and timed (the kernel wrapped in CUDA
+    events, the peak memory read from it), and one traced; beside the
+    bound from `model_flops`. The logits and the cache are finite, and the
+    traced run's logits equal the timed run's bit for bit (no atomics on
+    the path: flash, cuBLAS, the MoE dispatch and combine)."""
     import torch
 
     from repro_torch.configs import ShapeSpec
     from repro_torch.models import steps
     from repro_torch.utils import flops
 
-    b, s = LM_PREFILL_B, LM_PREFILL_S
-    tokens = _lm_tokens(np.random.default_rng(SEED + 41), cfg, b, s)
+    b, s = batch, LM_PREFILL_S
+    n_attn = _attn_layers(cfg)
+    tokens = _lm_tokens(np.random.default_rng(seed), cfg, b, s)
     step = steps.make_prefill_step(cfg)
-    torch.cuda.synchronize()
-    reset_counts()
     with _FlashCheck(_check_layers(cfg)) as chk:
-        lg, cache = step(model, {"tokens": tokens})
-        torch.cuda.synchronize()
-    counts = read_counts()
-    check(counts["flash_attn"] == cfg.n_layers
-          and counts["flash_attn_routes"] == {"wgmma": cfg.n_layers,
-                                              "fma": 0}
-          and counts["natsa_mp"] == 0,
-          f"llama3-8b prefill launches {counts}, want {cfg.n_layers} wgmma")
+        if n_attn:
+            step(model, {"tokens": tokens})
+            torch.cuda.synchronize()
     check(chk.ok(), f"in-model flash vs plain: {chk.results}")
-    check(lg.shape == (b, 1, cfg.padded_vocab) and lg.dtype == torch.bfloat16
-          and bool(torch.isfinite(lg).all()), "prefill logits")
-    check(len(cache) == cfg.n_layers and all(
-        c[k].shape == (b, s, cfg.n_kv_heads, cfg.head_dim)
-        and bool(torch.isfinite(c[k]).all()) for c in cache for k in "kv"),
-        "prefill cache")
-    del cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     with _FlashTimer() as timer:
         t0 = time.perf_counter()
         lg2, cache = step(model, {"tokens": tokens})
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attn"] == n_attn
+          and counts["flash_attn_routes"] == {"wgmma": n_attn, "fma": 0}
+          and counts["natsa_mp"] == 0,
+          f"{cfg.name} prefill launches {counts}, want {n_attn} wgmma")
+    check(lg2.shape == (b, 1, cfg.padded_vocab)
+          and lg2.dtype == torch.bfloat16 and _finite(lg2),
+          "prefill logits")
+    check(_cache_ok(cfg, cache, b, s), "prefill cache")
     del cache
-    trace = _device_time(lambda: step(model, {"tokens": tokens}), 1)
+    again = []
+    trace = _device_time(
+        lambda: again.append(step(model, {"tokens": tokens})[0]), 1)
+    repeat = torch.equal(again[0], lg2)
+    check(repeat, "the prefill did not repeat bit for bit")
     if trace["device_ms_per_call"] is not None:
         trace["idle_share"] = 1 - trace["device_ms_per_call"] / (1e3 * warm_s)
     flash_ms = timer.ms()
-    check(len(flash_ms) == cfg.n_layers and bool(torch.isfinite(lg2).all()),
-          "the timed prefill")
+    check(len(flash_ms) == n_attn, "the timed prefill's flash calls")
     shape = ShapeSpec(f"prefill_32k_b{b}", s, b, "prefill")
     mf = flops.model_flops(cfg, shape)
     t_ops = mf["total"] / BF16_PEAK
     t_bytes = flops.hbm_bytes_floor(cfg, shape, 1) / HBM_RATE
     bound_s = max(t_ops, t_bytes)
-    out = {"phase": "main_lm_prefill", "card": torch.cuda.get_device_name(0),
+    out = {"phase": phase, "cell": "prefill_32k",
+           "card": torch.cuda.get_device_name(0),
            "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": "bfloat16",
            "batch": b, "seq_len": s, **_lm_setup(),
-           "params": flops.param_counts(cfg)["total"],
+           "params": flops.param_counts(cfg),
            "counts": counts, "flash_launches": counts["flash_attn"],
            "launches_by_route": counts["flash_attn_routes"],
            "in_model_vs_plain": chk.results,
@@ -3042,22 +3136,24 @@ def phase_lm_prefill(model, cfg) -> dict:
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "share_of_bound": bound_s / warm_s,
            "flash_ms_in_model": sum(flash_ms),
-           "flash_ms_per_layer": [min(flash_ms), float(np.median(flash_ms)),
-                                  max(flash_ms)],
+           "flash_ms_per_layer": ([min(flash_ms), float(np.median(flash_ms)),
+                                   max(flash_ms)] if flash_ms else None),
            "flash_share": sum(flash_ms) / (1e3 * warm_s),
-           "repeat_bitwise": torch.equal(lg, lg2), "trace": trace}
+           "repeat_bitwise": repeat, "trace": trace}
     emit(out)
     return out
 
 
-def phase_lm_decode(model, cfg) -> dict:
+def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
+                    seed: int = SEED + 42) -> dict:
     """LM_DECODE_B requests of LM_DECODE_PROMPT tokens, prefilled
-    LM_DECODE_CHUNK at a time (32 flash launches each) into one decode cache
-    of prompt + LM_DECODE_STEPS slots, then LM_DECODE_STEPS greedy steps
-    (`greedy_next`) over the whole batch, each timed to its synchronize,
-    beside the per-step bound from `hbm_bytes_floor`. Before the timed
-    run, one chunk's prefill holds the kernel at three layers against the
-    plain version on the model's own q/k/v."""
+    LM_DECODE_CHUNK at a time (one flash launch per GQA layer each) into
+    one decode cache of prompt + LM_DECODE_STEPS slots, then
+    LM_DECODE_STEPS greedy steps (`greedy_next`) over the whole batch,
+    each timed to its synchronize, beside the per-step bound from
+    `hbm_bytes_floor`. Before the timed run, one chunk's prefill holds the
+    kernel at three layers against the plain version on the model's own
+    q/k/v (GQA)."""
     import torch
 
     from repro_torch.configs import ShapeSpec
@@ -3065,18 +3161,20 @@ def phase_lm_decode(model, cfg) -> dict:
     from repro_torch.utils import flops
 
     b, p, n, c = LM_DECODE_B, LM_DECODE_PROMPT, LM_DECODE_STEPS, LM_DECODE_CHUNK
-    tokens = _lm_tokens(np.random.default_rng(SEED + 42), cfg, b, p)
+    tokens = _lm_tokens(np.random.default_rng(seed), cfg, b, p)
     prefill = steps.make_prefill_step(cfg)
     with _FlashCheck(_check_layers(cfg)) as chk:
-        _, pre = prefill(model, {"tokens": tokens[:c]})
-        torch.cuda.synchronize()
+        if chk.calls:
+            _, pre = prefill(model, {"tokens": tokens[:c]})
+            torch.cuda.synchronize()
+            del pre
     check(chk.ok(), f"in-model flash vs plain (decode prompts): "
                     f"{chk.results}")
-    del pre
     torch.cuda.synchronize()
     free_bytes, total_bytes = torch.cuda.mem_get_info()
-    cache_bytes = (cfg.n_layers * 2 * b * (p + n) * cfg.n_kv_heads
-                   * cfg.head_dim * 2)
+    cache_bytes = sum(int(np.prod(sp.shape)) * 2 for layer in
+                      transformer.cache_spec(cfg, b, p + n)
+                      for sp in layer.values())
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     cache = transformer.init_cache(cfg, model, b, p + n)
@@ -3084,16 +3182,15 @@ def phase_lm_decode(model, cfg) -> dict:
     last = []
     for r0 in range(0, b, c):
         lg, pre = prefill(model, {"tokens": tokens[r0:r0 + c]})
-        for layer, pc in zip(cache, pre):
-            for key in ("k", "v"):
-                layer[key][r0:r0 + c, :p] = pc[key]
+        _copy_cache(cache, pre, slice(r0, r0 + c), p)
         last.append(lg)
         del pre
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_counts = read_counts()
-    want = cfg.n_layers * (b // c)
-    check(prefill_counts["flash_attn_routes"] == {"wgmma": want, "fma": 0},
+    want = _attn_layers(cfg) * (b // c)
+    check(prefill_counts["flash_attn_routes"] == {"wgmma": want, "fma": 0}
+          and prefill_counts["natsa_mp"] == 0,
           f"chunked prefill launches {prefill_counts}, want {want} wgmma")
     dec = steps.make_decode_step(cfg)
     nxt = steps.greedy_next(torch.cat(last, dim=0))
@@ -3121,7 +3218,7 @@ def phase_lm_decode(model, cfg) -> dict:
           f"decode steps launched a kernel: {counts} after {prefill_counts}")
     check(toks.shape == (b, n + 1) and toks.dtype == torch.int32
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
-          and bool(torch.isfinite(lg).all()), "decoded tokens / logits")
+          and _finite(lg), "decoded tokens / logits")
     shape = ShapeSpec(f"decode_{p + n}_b{b}", p + n, b, "decode")
     floor_bytes = flops.hbm_bytes_floor(cfg, shape, 1)
     t_bytes = floor_bytes / HBM_RATE
@@ -3130,7 +3227,8 @@ def phase_lm_decode(model, cfg) -> dict:
     med = float(np.median(step_ms))
     if trace["device_ms_per_call"] is not None:
         trace["idle_share"] = 1 - trace["device_ms_per_call"] / med
-    out = {"phase": "main_lm_decode", "card": torch.cuda.get_device_name(0),
+    out = {"phase": phase, "cell": "decode_32k",
+           "card": torch.cuda.get_device_name(0),
            "arch": cfg.name, "batch": b, "prompt": p, "steps": n,
            "cache_slots": p + n, "prefill_chunk": c, **_lm_setup(),
            "cache_bytes": cache_bytes, "free_bytes_before": free_bytes,
@@ -3229,31 +3327,282 @@ def phase_lm_vs_plain() -> dict:
     return out
 
 
-def phase_lm() -> dict:
-    """The three LM phases: the 2-layer comparison first, then the full
-    model, built once on the card for prefill and decode and freed."""
+def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
+                prefill_b: int, seed: int) -> dict:
+    """One model at its published width and depth, built once on the card
+    from `seed` for its prefill and decode phases, then freed."""
     import torch
 
     from repro_torch import configs
 
-    vs_plain = phase_lm_vs_plain()
-    torch.cuda.empty_cache()
-    cfg = configs.get_config(LM_ARCH)
+    cfg = configs.get_config(arch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = _lm_model(cfg, SEED + 40)
+    model = _lm_model(cfg, seed)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    pre = phase_lm_prefill(model, cfg)
+    pre = phase_lm_prefill(model, cfg, phase=prefill_phase, batch=prefill_b,
+                           seed=seed + 1)
     torch.cuda.empty_cache()
-    dec = phase_lm_decode(model, cfg)
+    dec = phase_lm_decode(model, cfg, phase=decode_phase, seed=seed + 2)
     del model
     torch.cuda.empty_cache()
     emit({"phase": "lm_model", "arch": cfg.name, "build_s": build_s,
           "weight_bytes": weights})
-    return {"prefill": pre, "decode": dec, "vs_plain": vs_plain,
-            "build_s": build_s, "weight_bytes": weights}
+    return {"prefill": pre, "decode": dec, "build_s": build_s,
+            "weight_bytes": weights}
+
+
+def phase_lm() -> dict:
+    """The llama3-8b phases: the 2-layer comparison first, then the full
+    model for prefill and decode."""
+    import torch
+
+    vs_plain = phase_lm_vs_plain()
+    torch.cuda.empty_cache()
+    out = _lm_serving(LM_ARCH, "main_lm_prefill", "main_lm_decode",
+                      LM_PREFILL_B, SEED + 40)
+    return {**out, "vs_plain": vs_plain}
+
+
+class _RoutingLog:
+    """Records, while active, each MoE layer's routing (`moe._route`):
+    per token the expert set (sorted ids) and which of those entries
+    were kept under capacity, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.real, self.calls = moe, moe._route, []
+
+        def logged(cfg, p, xt):
+            out = self.real(cfg, p, xt)
+            n = xt.shape[0]
+            ids, order = out[2].view(n, -1).sort(dim=1)
+            self.calls.append((ids, out[4].view(n, -1).gather(1, order)))
+            return out
+
+        moe._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.real
+
+    def stacked(self, first: int = 0):
+        """(ids, keep) of the calls from `first` on: (calls, n, k)."""
+        calls = self.calls[first:]
+        return (np.stack([c[0].cpu().numpy() for c in calls]),
+                np.stack([c[1].cpu().numpy() for c in calls]))
+
+
+def _flipped(a, b):
+    """Tokens whose expert set or kept mask differs at any layer between
+    two routings (ids, keep) of shape (layers, n, k): (n,) bool."""
+    return ((a[0] != b[0]) | (a[1] != b[1])).any(axis=(0, 2))
+
+
+def _decode_routing(log: _RoutingLog, moe_layers: int, b: int, t: int):
+    """A teacher-forced decode run's routing (its prefill's calls first,
+    then moe_layers calls of b tokens per step) as (layers, b·t, k), tokens
+    request-major as a (b, t) forward's."""
+    ids, keep = log.stacked(moe_layers)
+    k = ids.shape[-1]
+
+    def arrange(x):
+        return x.reshape(t, moe_layers, b, k).transpose(1, 2, 0, 3).reshape(
+            moe_layers, b * t, k)
+    return arrange(ids), arrange(keep)
+
+
+def _routed_vs(got, want, flipped, tol: float) -> dict:
+    """`_logits_vs` over the tokens whose routing did not flip (flipped:
+    (B·T,) bool over got's (B, T) positions), beside the flip count; at
+    most FLIP_SHARE_MAX of the tokens may flip."""
+    import torch
+
+    keep = ~torch.from_numpy(flipped).to(got.device).reshape(got.shape[:2])
+    share = float(flipped.mean())
+    out = {"flipped_tokens": int(flipped.sum()), "tokens": int(flipped.size),
+           "flipped_share": share, "flip_share_max": FLIP_SHARE_MAX}
+    if not bool(keep.any()):
+        return {**out, "logits_ok": False, "ok": False}
+    vs = _logits_vs(got[keep], want[keep], tol)
+    return {**vs, **out, "logits_ok": vs["ok"],
+            "ok": vs["ok"] and share <= FLIP_SHARE_MAX}
+
+
+class _PermutedExperts:
+    """A planted fault: while active, expert e's down projection in each
+    of `layers` holds expert e + 1's weights (`ffn.wo` rolled over the
+    expert axis; the weights are put back on exit)."""
+
+    def __init__(self, model, layers):
+        self.params = [model.get_parameter(f"layers.{i}.ffn.wo")
+                       for i in layers]
+
+    def __enter__(self):
+        self.saved = [p.data for p in self.params]
+        for p in self.params:
+            p.data = p.data.roll(-1, 0)
+        return self
+
+    def __exit__(self, *exc):
+        for p, t in zip(self.params, self.saved):
+            p.data = t
+
+
+def _moe_layer_ids(cfg) -> list[int]:
+    return [i for i in range(cfg.n_layers) if cfg.layer_kind(i).ffn == "moe"]
+
+
+def _moe_layers(cfg) -> int:
+    return len(_moe_layer_ids(cfg))
+
+
+def _last_layer_fault(got, want, flipped, tol: float) -> dict:
+    """`_routed_vs` of a run with the last MoE layer's experts permuted:
+    no routing comes after that layer, so the fault flips no token the
+    sound run does not, and must fail the logit bound itself."""
+    out = {"fault": "expert e's down projection reads expert e + 1's, at "
+                    "the last MoE layer only (routing unchanged)",
+           **_routed_vs(got, want, flipped, tol)}
+    check(not out["logits_ok"],
+          f"the logit bound passes a planted fault: {out}")
+    return out
+
+
+def _consistency_f32(arch: str, seed: int, model=None) -> dict:
+    """One model at full width, LM_MOE_LAYERS layers, f32 compute over its
+    bf16 weights, B·S = LM_MOE_F32_S tokens (dispatch dropless on both
+    sides): prefill against train, and decode against teacher forcing
+    (LM_MOE_DECODE steps after a prefill of the rest), within
+    TOL_LM_DECODE over the tokens whose routing did not flip; a planted
+    fault (`_PermutedExperts` at the last MoE layer in the decode run,
+    which changes no routing) must fail the logit bound."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=LM_MOE_LAYERS, dtype=torch.float32)
+    if model is None:
+        model = _lm_model(cfg, seed)
+    s, t, v = LM_MOE_F32_S, LM_MOE_DECODE, cfg.vocab_size
+    tokens = _lm_tokens(np.random.default_rng(seed + 1), cfg, 1, s)
+    nm = _moe_layers(cfg)
+    reset_counts()
+    with _RoutingLog() as rt:
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+    with _RoutingLog() as rp:
+        pre, _, _ = transformer.forward(cfg, model, tokens, mode="prefill")
+    with _RoutingLog() as rd:
+        dec = _lm_decode_run(cfg, model, tokens, s - t)
+    counts = read_counts()
+    n_attn = _attn_layers(cfg)
+    check(counts["flash_attn_routes"] == {"wgmma": 0, "fma": 3 * n_attn}
+          and counts["natsa_mp"] == 0, f"{arch} f32 launches {counts}")
+    with _PermutedExperts(model, _moe_layer_ids(cfg)[-1:]), \
+            _RoutingLog() as rf:
+        fault = _lm_decode_run(cfg, model, tokens, s - t)
+    teacher = tuple(x[:, s - t:] for x in rt.stacked())      # B = 1
+    out = {"arch": arch, "layers": cfg.n_layers, "seq_len": s,
+           "decode_steps": t, "counts": counts,
+           "prefill_vs_train": _routed_vs(
+               pre[..., :v], full[..., :v],
+               _flipped(rp.stacked(), rt.stacked()), TOL_LM_DECODE),
+           "decode_vs_teacher": _routed_vs(
+               dec[..., :v], full[:, s - t:, :v],
+               _flipped(_decode_routing(rd, nm, 1, t), teacher),
+               TOL_LM_DECODE)}
+    out["planted_fault"] = _last_layer_fault(
+        fault[..., :v], full[:, s - t:, :v],
+        _flipped(_decode_routing(rf, nm, 1, t), teacher), TOL_LM_DECODE)
+    for key in ("prefill_vs_train", "decode_vs_teacher"):
+        check(out[key]["ok"], f"lm_moe_vs_plain {arch} {key}: {out[key]}")
+    return out
+
+
+def phase_lm_moe_vs_plain() -> dict:
+    """olmoe-1b-7b and deepseek-v2-lite-16b at full width, LM_MOE_LAYERS
+    layers (deepseek's: its dense first layer and one MLA + MoE layer).
+    olmoe in bf16 over S = LM_MOE_PLAIN_S tokens: the train-mode logits
+    with the flash kernel (wgmma) against the same model with the kernel
+    call swapped for its plain version, within TOL_LM_BF16 over the tokens
+    whose routing (expert set or kept mask at any layer) is the same on
+    both sides, at most FLIP_SHARE_MAX of the tokens flipping; the kernel
+    held per element at both layers on the model's own q/k/v; two planted
+    faults must fail: `_PermutedExperts` at every MoE layer (which reroutes
+    the tokens of the layers after the first) and at the last one only
+    (which reroutes none, so the logit bound alone must catch it). Then
+    `_consistency_f32` on both models."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get_config(LM_MOE_ARCH),
+                              n_layers=LM_MOE_LAYERS)
+    model = _lm_model(cfg, SEED + 50)
+    s = LM_MOE_PLAIN_S
+    tokens = _lm_tokens(np.random.default_rng(SEED + 51), cfg, 1, s)
+    v = cfg.vocab_size
+    out = {"phase": "lm_moe_vs_plain", "card": torch.cuda.get_device_name(0),
+           "arch": cfg.name, "layers": cfg.n_layers, "seq_len": s,
+           **_lm_setup()}
+    with torch.no_grad():
+        reset_counts()
+        with _RoutingLog() as rk, _FlashCheck(range(cfg.n_layers)) as chk:
+            full, aux, _ = transformer.forward(cfg, model, tokens,
+                                               mode="train")
+        counts = read_counts()
+        check(counts["flash_attn_routes"] == {"wgmma": cfg.n_layers,
+                                              "fma": 0}
+              and counts["natsa_mp"] == 0,
+              f"lm_moe_vs_plain kernel launches {counts}")
+        check(chk.ok(), f"in-model flash vs plain: {chk.results}")
+        with _PlainFlash(), _RoutingLog() as rp:
+            plain, _, _ = transformer.forward(cfg, model, tokens,
+                                              mode="train")
+        check(read_counts() == counts, "the plain run launched a kernel")
+        moe_ids = _moe_layer_ids(cfg)
+        with _PlainFlash(), _PermutedExperts(model, moe_ids), \
+                _RoutingLog() as rf:
+            fault, _, _ = transformer.forward(cfg, model, tokens,
+                                              mode="train")
+        with _PlainFlash(), _PermutedExperts(model, moe_ids[-1:]), \
+                _RoutingLog() as rl:
+            last, _, _ = transformer.forward(cfg, model, tokens,
+                                             mode="train")
+        out["counts"] = counts
+        out["in_model_vs_plain"] = chk.results
+        out["aux"] = float(aux)
+        out["dropped_entries"] = int((~rk.stacked()[1]).sum())
+        out["train_vs_plain"] = _routed_vs(
+            full[..., :v], plain[..., :v],
+            _flipped(rk.stacked(), rp.stacked()), TOL_LM_BF16)
+        out["planted_fault"] = {
+            "fault": "expert e's down projection reads expert e + 1's, at "
+                     "every MoE layer",
+            **_routed_vs(fault[..., :v], plain[..., :v],
+                         _flipped(rf.stacked(), rp.stacked()), TOL_LM_BF16)}
+        check(not out["planted_fault"]["ok"],
+              f"the bound passes a planted fault: {out['planted_fault']}")
+        out["planted_fault_last_layer"] = _last_layer_fault(
+            last[..., :v], plain[..., :v],
+            _flipped(rl.stacked(), rp.stacked()), TOL_LM_BF16)
+        del full, plain, fault, last
+        out["f32"] = [_consistency_f32(LM_MOE_ARCH, SEED + 52, model),
+                      _consistency_f32(LM_MLA_ARCH, SEED + 54)]
+    check(out["train_vs_plain"]["ok"],
+          f"lm_moe_vs_plain train_vs_plain: {out['train_vs_plain']}")
+    emit(out)
+    return out
 
 
 def _grad_ratio(got, plain) -> float:
@@ -3768,6 +4117,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm = phase_lm()
     torch.cuda.empty_cache()
+    moe_plain = phase_lm_moe_vs_plain()
+    torch.cuda.empty_cache()
+    lm_moe = _lm_serving(LM_MOE_ARCH, "main_lm_moe", "main_lm_moe",
+                         LM_MOE_PREFILL_B, SEED + 60)
+    lm_mla = _lm_serving(LM_MLA_ARCH, "main_lm_mla", "main_lm_mla",
+                         LM_MLA_PREFILL_B, SEED + 70)
     phase_lm_train_vs_plain()
     tr = phase_lm_train()
     cli = phase_lm_train_cli()
@@ -3789,6 +4144,10 @@ def main() -> None:
                  "anytime": an["self"], "anytime_ab": an["ab"],
                  "anytime_topk": an["topk"],
                  "lm_prefill": lm["prefill"], "lm_decode": lm["decode"],
+                 "lm_moe_prefill": lm_moe["prefill"],
+                 "lm_moe_decode": lm_moe["decode"],
+                 "lm_mla_prefill": lm_mla["prefill"],
+                 "lm_mla_decode": lm_mla["decode"],
                  "lm_train": tr, "lm_train_cli": cli}
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3822,8 +4181,10 @@ def main() -> None:
     }, {
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": (fl["launches"] + lm["prefill"]["counts"]["flash_attn"]
-                     + lm["decode"]["counts"]["flash_attn"]
+        "launches": (fl["launches"]
+                     + sum(m[ph]["counts"]["flash_attn"]
+                           for m in (lm, lm_moe, lm_mla)
+                           for ph in ("prefill", "decode"))
                      + tr["counts"]["flash_attn"]
                      + cli["counts"]["flash_attn"]),
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
@@ -3843,9 +4204,18 @@ def main() -> None:
         "lm_prefill": {f: lm["prefill"][f] for f in (
             "flash_launches", "flash_ms_in_model", "flash_ms_per_layer",
             "flash_share", "prefill_s", "bound_s")},
+        "lm_moe_prefill": {f: lm_moe["prefill"][f] for f in (
+            "batch", "flash_launches", "flash_ms_in_model",
+            "flash_ms_per_layer", "flash_share", "prefill_s", "bound_s")},
         "lm_in_model_max_element_ratio": max(
-            r["element_ratio"] for ph in ("prefill", "decode")
-            for r in lm[ph]["in_model_vs_plain"]),
+            r["element_ratio"] for m in (lm, lm_moe)
+            for ph in ("prefill", "decode")
+            for r in m[ph]["in_model_vs_plain"]),
+        "lm_moe_vs_plain_max_element_ratio": max(
+            r["element_ratio"] for r in moe_plain["in_model_vs_plain"]),
+        "lm_mla": "no kernel: MLA attention is torch ops (QK width "
+                  "r + dr = 576 and V width r = 512 exceed the kernel's "
+                  "head dims, its scale is not 1/sqrt(D))",
         "lm_train": {f: tr[f] for f in (
             "flash_launches", "flash_ms_per_launch",
             "plain_backward_ms_per_call", "train_step_s_median",

@@ -1,6 +1,7 @@
 """Architecture registry — port of `repro.configs`: `--arch <id>` resolves
-here. Every architecture of the reference is listed; only the dense GQA
-family (llama3-8b, qwen2-7b, qwen2.5-32b) builds a model in this package."""
+here. Every architecture of the reference is listed; llama3-8b, qwen2-7b,
+qwen2.5-32b, olmoe-1b-7b, deepseek-v2-lite-16b and minicpm3-4b build a
+model in this package."""
 
 from repro_torch.configs import (
     deepseek_v2_lite, jamba_v01_52b, llama3_8b, minicpm3_4b, olmoe_1b_7b,

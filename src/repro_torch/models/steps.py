@@ -109,7 +109,7 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig, *,
 
 def make_prefill_step(cfg: ModelConfig):
     """(params, batch{tokens (B, S)}) -> (last-position logits (B, 1, V),
-    cache: a list of per-layer {k, v} of S slots)."""
+    cache: a list of per-layer {k, v} or {ckv, kr} of S slots)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -124,7 +124,8 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """(params, cache, batch{tokens (B, 1), cache_len}) -> (logits, cache);
-    the cache is written in place (`attention.gqa_decode`)."""
+    the cache is written in place (`attention.gqa_decode`,
+    `attention.mla_decode`)."""
 
     @torch.no_grad()
     def decode_step(params, cache, batch):

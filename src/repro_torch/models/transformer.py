@@ -1,20 +1,26 @@
-"""LM assembly for the dense GQA family — port of `repro.models.transformer`.
+"""LM assembly — port of `repro.models.transformer` for the dense GQA,
+MLA and MoE families.
 
 The reference scans stacked "period" parameters; here the stack is a loop
 over per-layer modules (`Transformer.layers`, one `ParamTree` each),
 and `models.convert` carries weights between the two layouts. A model is
 built on the card unless `device="cpu"` is given, its weights drawn layer
-by layer from a `torch.Generator` on that device. Every layer must be an
-`attn` mixer with a `swiglu`/`gelu` FFN (llama3-8b, qwen2-7b, qwen2.5-32b);
-other families raise `NotImplementedError` naming ROADMAP.md §A9 (iii).
+by layer from a `torch.Generator` on that device. A layer's mixer is GQA
+attention (`attn`) or multi-head latent attention (`mla`), its FFN a
+SwiGLU, a GELU MLP or a routed MoE (`moe`): llama3-8b, qwen2-7b,
+qwen2.5-32b, olmoe-1b-7b, deepseek-v2-lite-16b (its dense first layer
+included) and minicpm3-4b. RWKV, Mamba, the encoder-decoder with
+cross-attention and M-RoPE raise `NotImplementedError` naming ROADMAP.md
+§A9 (iii).
 
-Modes: train (no cache), prefill (returns the KV cache), decode (one
-token; writes the cache in place, see `attention.gqa_decode`). The output
-head is tied: `x @ emb.T`. With `cfg.remat`, a train-mode forward under
-autograd recomputes each layer in the backward
-(`torch.utils.checkpoint`, non-reentrant): only the layer's input is
-kept, as the reference's `jax.checkpoint(..., nothing_saveable)` per
-layer does.
+Modes: train (no cache), prefill (returns the cache), decode (one token;
+writes the cache in place, see `attention.gqa_decode` and
+`attention.mla_decode`). The output head is tied: `x @ emb.T`. Each MoE
+layer returns its load-balancing aux loss; `trunk` sums them. With
+`cfg.remat`, a train-mode forward under autograd recomputes each layer in
+the backward (`torch.utils.checkpoint`, non-reentrant): only the layer's
+input is kept, as the reference's `jax.checkpoint(..., nothing_saveable)`
+per layer does, and the layer's aux comes out beside its output.
 """
 
 from __future__ import annotations
@@ -34,8 +40,13 @@ from repro_torch.utils.device import resolve_device
 UNPORTED = "ROADMAP.md §A9 (iii)"
 
 
+MIXERS = ("attn", "mla")
+FFNS = ("swiglu", "gelu", "moe")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of `cfg` is dense GQA."""
+    """Raise NotImplementedError unless every layer of `cfg` has a ported
+    mixer and FFN, with no M-RoPE and no encoder."""
     parts = set()
     if cfg.mrope_sections:
         parts.add("M-RoPE")
@@ -43,14 +54,15 @@ def check_supported(cfg: ModelConfig) -> None:
         parts.add("an encoder-decoder with cross-attention")
     for i in range(cfg.n_layers):
         ls = cfg.layer_kind(i)
-        if ls.mixer != "attn":
+        if ls.mixer not in MIXERS:
             parts.add(f"the {ls.mixer} mixer")
-        if ls.ffn not in ("swiglu", "gelu"):
+        if ls.ffn not in FFNS:
             parts.add(f"the {ls.ffn} FFN")
     if parts:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(parts))} is not ported yet "
-            f"({UNPORTED}); this package builds the dense GQA family only")
+            f"({UNPORTED}); this package builds the GQA, MLA and MoE "
+            "families only")
 
 
 # ---------------------------------------------------------------------------
@@ -58,13 +70,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> Tree:
-    if ls.mixer != "attn" or ls.ffn not in ("swiglu", "gelu"):
+    if ls.mixer not in MIXERS or ls.ffn not in FFNS or ls.cross:
         raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
-    norm_spec, _ = make_norm(cfg.norm_type, cfg.d_model)
-    return {"ln1": norm_spec, "mixer": attention.gqa_spec(cfg),
-            "ln2": norm_spec,
-            "ffn": (moe.swiglu_spec(cfg.d_model, ls.d_ff) if ls.ffn == "swiglu"
-                    else moe.gelu_mlp_spec(cfg.d_model, ls.d_ff))}
+    d = cfg.d_model
+    norm_spec, _ = make_norm(cfg.norm_type, d)
+    mixer = (attention.gqa_spec(cfg) if ls.mixer == "attn"
+             else attention.mla_spec(cfg))
+    if ls.ffn == "moe":
+        ffn = moe.moe_spec(cfg)
+    elif ls.ffn == "swiglu":
+        ffn = moe.swiglu_spec(d, ls.d_ff)
+    else:
+        ffn = moe.gelu_mlp_spec(d, ls.d_ff)
+    return {"ln1": norm_spec, "mixer": mixer, "ln2": norm_spec, "ffn": ffn}
 
 
 def model_spec(cfg: ModelConfig) -> Tree:
@@ -86,6 +104,13 @@ def model_spec(cfg: ModelConfig) -> Tree:
 
 
 def layer_cache_spec(cfg: ModelConfig, ls: LayerSpec, b: int, s: int) -> Tree:
+    if ls.mixer == "mla":
+        return {"ckv": ParamSpec((b, s, cfg.kv_lora_rank),
+                                 ("batch", "kv_seq", "kv_lora"),
+                                 dtype=cfg.dtype),
+                "kr": ParamSpec((b, s, cfg.qk_rope_dim),
+                                ("batch", "kv_seq", "head_dim"),
+                                dtype=cfg.dtype)}
     if ls.mixer != "attn":
         raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
     shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -151,24 +176,41 @@ def _norm(cfg):
     return make_norm(cfg.norm_type, cfg.d_model)[1]
 
 
+def _mixer(cfg, ls, p, h, *, mode, positions, cache, cache_len):
+    """The layer's attention in `mode`: (output, new cache entries)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode}")
+    if ls.mixer == "mla":
+        if mode == "decode":
+            return attention.mla_decode(cfg, p, h, cache, cache_len,
+                                        positions)
+        if mode == "prefill":
+            return attention.mla_full(cfg, p, h, positions,
+                                      return_cache=True)
+        return attention.mla_full(cfg, p, h, positions), {}
+    if mode == "decode":
+        return attention.gqa_decode(cfg, p, h, cache, cache_len, positions)
+    if mode == "prefill":
+        return attention.gqa_prefill(cfg, p, h, positions)
+    return attention.gqa_full(cfg, p, h, positions, causal=True), {}
+
+
 def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
                 positions=None, cache: Tree | None = None, cache_len=None):
-    """Returns (x, aux, new_cache); aux is 0.0 (no MoE layer is ported)."""
+    """Returns (x, aux, new_cache); aux is the MoE layer's load-balancing
+    loss (an f32 scalar), 0.0 for a dense FFN."""
     norm = _norm(cfg)
-    new_cache: Tree = {}
-    h = norm(x, p["ln1"])
-    if mode == "train":
-        o = attention.gqa_full(cfg, p["mixer"], h, positions, causal=True)
-    elif mode == "prefill":
-        o, new_cache = attention.gqa_prefill(cfg, p["mixer"], h, positions)
-    elif mode == "decode":
-        o, new_cache = attention.gqa_decode(cfg, p["mixer"], h, cache,
-                                            cache_len, positions)
-    else:
-        raise ValueError(f"mode must be train, prefill or decode, got {mode}")
+    o, new_cache = _mixer(cfg, ls, p["mixer"], norm(x, p["ln1"]), mode=mode,
+                          positions=positions, cache=cache,
+                          cache_len=cache_len)
     x = x + o
-    ffn = moe.swiglu if ls.ffn == "swiglu" else moe.gelu_mlp
-    return x + ffn(p["ffn"], norm(x, p["ln2"])), 0.0, new_cache
+    h = norm(x, p["ln2"])
+    aux = 0.0
+    if ls.ffn == "moe":
+        o, aux = moe.moe_ffn(cfg, p["ffn"], h)
+    else:
+        o = (moe.swiglu if ls.ffn == "swiglu" else moe.gelu_mlp)(p["ffn"], h)
+    return x + o, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +224,9 @@ def _positions(tokens):
 
 
 def _require_increasing(positions) -> None:
-    """Causal attention masks by index (`attention._flash`); that equals
-    the reference's position mask only where positions rise along each
+    """Causal attention masks by index (`attention._flash`) or skips the
+    keys past a query chunk (`attention.mla_full`); either equals the
+    reference's position mask only where positions rise along each
     row."""
     if positions.shape[-1] > 1 and not bool(
             (positions[..., 1:] > positions[..., :-1]).all()):
@@ -194,11 +237,12 @@ def _require_increasing(positions) -> None:
 def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
           cache: list[Tree] | None = None, cache_len=None):
     """Everything before the output head: (final-normed hidden states
-    (B, S, D), aux, new_cache). new_cache is a list of per-layer {k, v}
-    for prefill and decode, empty for train. Positions a caller passes
-    for train or prefill must rise along each row (checked once here).
-    With `cfg.remat`, a train forward under autograd checkpoints each
-    layer."""
+    (B, S, D), aux, new_cache). aux is the sum of the MoE layers' aux
+    losses (f32). new_cache is a list of per-layer caches ({k, v} or
+    {ckv, kr}) for prefill and decode, empty for train. Positions a caller
+    passes for train or prefill must rise along each row (checked once
+    here). With `cfg.remat`, a train forward under autograd checkpoints
+    each layer, its aux carried out beside its output."""
     x = params["emb"][tokens.long()].to(cfg.dtype)
     if positions is None:
         if mode == "decode":
@@ -209,21 +253,23 @@ def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
     elif mode != "decode":
         _require_increasing(positions)
     new_cache: list[Tree] = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for i, layer in enumerate(params["layers"]):
         ls = cfg.layer_kind(i)
         if remat:
-            x = checkpoint(lambda x, ls=ls, layer=layer: apply_layer(
-                cfg, ls, layer, x, mode=mode, positions=positions)[0],
+            x, a = checkpoint(lambda x, ls=ls, layer=layer: apply_layer(
+                cfg, ls, layer, x, mode=mode, positions=positions)[:2],
                 x, use_reentrant=False)
+            aux = aux + a
             continue
-        x, _, nc = apply_layer(cfg, ls, layer, x, mode=mode,
+        x, a, nc = apply_layer(cfg, ls, layer, x, mode=mode,
                                positions=positions,
                                cache=None if cache is None else cache[i],
                                cache_len=cache_len)
+        aux = aux + a
         if mode in ("prefill", "decode"):
             new_cache.append(nc)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
     return _norm(cfg)(x, params["ln_f"]), aux, new_cache
 
 

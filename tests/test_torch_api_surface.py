@@ -244,11 +244,8 @@ LM_NOT_PORTED = {
         "sanitize_pspec": "§A9 (iv)", "sanitized_pspecs": "§A9 (iv)",
         "tree_pspecs": "§A9 (iv)", "tree_shapes": "§A9 (iv)",
         "apply_mrope": "§A9 (iii)"},
-    "models.moe": {"ShardCtx": "§A9 (iv)", "moe_spec": "§A9 (iii)",
-                   "moe_ffn": "§A9 (iii)"},
-    "models.attention": {"mla_spec": "§A9 (iii)", "mla_full": "§A9 (iii)",
-                         "mla_decode": "§A9 (iii)",
-                         "cross_spec": "§A9 (iii)",
+    "models.moe": {"ShardCtx": "§A9 (iv)"},
+    "models.attention": {"cross_spec": "§A9 (iii)",
                          "cross_full": "§A9 (iii)"},
     "models.transformer": {"encode": "§A9 (iii)"},
     "models.steps": {"logits_pspec": "§A9 (iv)"},
@@ -257,8 +254,8 @@ LM_NOT_PORTED = {
 # parameters the port's functions drop: a sharding context (a mesh,
 # §A9 (iv)), whisper's encoder inputs (§A9 (iii)) and the reference's
 # attention query chunks (one flash call tiles its own way, ROADMAP.md
-# §C (16)); `init_params` takes a torch.Generator where the reference
-# takes a key
+# §C (16); MLA reads `cfg.q_chunk`, §C (21)); `init_params` takes a
+# torch.Generator where the reference takes a key
 LM_DROPPED = {"ctx", "frames", "enc_out", "bidir", "q_chunk"}
 # parameters the port's functions add at the end: `rope_freqs` builds on a
 # device; `apply_updates` takes the paths that decay, which the reference

@@ -1,6 +1,9 @@
 """The port's LM substrate (`repro_torch.configs`, `repro_torch.models`,
 `repro_torch.utils.flops`) against the reference's (`repro.configs`,
-`repro.models`, `repro.utils.flops`), on the CPU.
+`repro.models`, `repro.utils.flops`), on the CPU, for every ported family:
+dense GQA (llama3-8b, qwen2-7b, qwen2.5-32b), MoE (olmoe-1b-7b), MLA
+(minicpm3-4b) and MLA with MoE and a dense first layer
+(deepseek-v2-lite-16b).
 
 Configs, input specs, parameter and cache specs, parameter counts and
 model FLOPs are compared exactly. Logits and caches are compared with the
@@ -8,10 +11,11 @@ reference's weights carried across by `models.convert`, within
 1e-4 · (1 + max|ref|) in f32 (the smoke configs compute in f32 over bf16
 weights; the two frameworks sum in other orders, ~1e-6 observed), at
 T = 12 (the reference's unchunked causal branch, 12 % q_chunk != 0) and
-T = 16 (its two `q_chunk` = 8 chunks). The port's full and prefill
-attention is one flash call over repeated K/V on every device: the plain
-version here, the kernel on the card, so these comparisons cover the
-route the card runs. The `gpu`-marked test holds the model's kernel route
+T = 16 (its two `q_chunk` = 8 chunks); the MoE aux loss within 1e-6. The
+port's full and prefill GQA attention is one flash call over repeated K/V
+on every device: the plain version here, the kernel on the card, so these
+comparisons cover the route the card runs. MLA is torch ops on every
+device. The `gpu`-marked test holds the model's kernel route
 against the same model on the plain version, on the card.
 """
 
@@ -37,7 +41,8 @@ from repro_torch.models.common import (
 )
 from repro_torch.utils import flops
 
-DENSE = ["llama3-8b", "qwen2-7b", "qwen2.5-32b"]
+DENSE = ["llama3-8b", "qwen2-7b", "qwen2.5-32b", "olmoe-1b-7b",
+         "deepseek-v2-lite-16b", "minicpm3-4b"]
 UNPORTED = sorted(set(rconfigs.list_archs()) - set(DENSE))
 SEQ_LENS = [12, 16]
 
@@ -74,6 +79,15 @@ def _tokens(cfg, b, t, seed=1):
         0, cfg.vocab_size, (b, t)).astype(np.int32)
 
 
+def _ref_layer(tree, cfg, i):
+    """(the reference's subtree holding decoder layer i, stacked?): a
+    `prefix` entry, or the `period` entry of its position in the period."""
+    prefix, period, _ = cfg.layer_groups()
+    if i < len(prefix):
+        return tree["prefix"][str(i)], False
+    return tree["period"][str((i - len(prefix)) % len(period))], True
+
+
 def _ref_layout(tree) -> dict:
     """The reference's spec tree in the port's layer-by-layer naming:
     path -> (shape, axes, init, scale, dtype name)."""
@@ -91,11 +105,14 @@ def _ref_layout(tree) -> dict:
                                    val.scale, _dtype_name(val.dtype))
 
     walk({k: tree[k] for k in ("emb", "ln_f")}, "", False)
-    period = tree["period"]
+    prefix, period = tree.get("prefix", {}), tree["period"]
+    for i in range(len(prefix)):
+        walk(prefix[str(i)], f"layers.{i}.", False)
     n = tree["period"]["0"]["ln1"].shape[0]
     for p in range(n):
         for j in range(len(period)):
-            walk(period[str(j)], f"layers.{p * len(period) + j}.", True)
+            walk(period[str(j)],
+                 f"layers.{len(prefix) + p * len(period) + j}.", True)
     return out
 
 
@@ -163,8 +180,9 @@ def test_param_spec_matches_reference_leaf_by_leaf(arch, which):
     assert got == _ref_layout(rtransformer.model_spec(rcfg))
     # the reference's stacked period is stack_spec of one layer's spec
     ref_period = rtransformer.model_spec(rcfg)["period"]["0"]
-    stacked = stack_spec(transformer.layer_param_spec(cfg, cfg.layer_kind(0)),
-                         cfg.n_layers)
+    prefix, _, n_periods = cfg.layer_groups()
+    stacked = stack_spec(transformer.layer_param_spec(
+        cfg, cfg.layer_kind(len(prefix))), n_periods)
     assert sorted((path, s.shape, s.axes)
                   for path, s in tree_leaves(stacked)) == sorted(
         (path, s.shape, s.axes) for path, s in tree_leaves(ref_period))
@@ -191,13 +209,16 @@ def test_mask_padded_vocab_and_greedy_match_reference():
 def test_cache_spec_matches_reference(arch):
     cfg, rcfg = configs.get_config(arch), rconfigs.get_config(arch)
     b, s = 4, 2112
-    ref = rtransformer.cache_spec(rcfg, b, s)["period"]["0"]
+    ref_tree = rtransformer.cache_spec(rcfg, b, s)
     got = transformer.cache_spec(cfg, b, s)
-    assert len(got) == ref["k"].shape[0] == cfg.n_layers
-    for layer in got:
-        for key in ("k", "v"):
-            assert layer[key].shape == ref[key].shape[1:]
-            assert layer[key].axes == ref[key].axes[1:]
+    assert len(got) == cfg.n_layers
+    for i, layer in enumerate(got):
+        ref, stacked = _ref_layer(ref_tree, cfg, i)
+        assert sorted(layer) == sorted(ref)
+        for key in layer:
+            cut = 1 if stacked else 0
+            assert layer[key].shape == ref[key].shape[cut:]
+            assert layer[key].axes == ref[key].axes[cut:]
             assert _dtype_name(layer[key].dtype) == _dtype_name(ref[key].dtype)
 
 
@@ -209,8 +230,11 @@ def test_param_counts_match_reference(arch):
     assert count_params(transformer.model_spec(cfg)) == rcount(
         rtransformer.model_spec(rcfg))
     assert flops.param_counts(cfg) == rflops.param_counts(rcfg)
-    if arch == "llama3-8b":          # the figure chip_smoke.py's bounds use
-        assert flops.param_counts(cfg)["total"] == 7_504_924_672
+    # the figures chip_smoke.py's bounds use
+    total = {"llama3-8b": 7_504_924_672, "olmoe-1b-7b": 6_816_073_728,
+             "deepseek-v2-lite-16b": 15_496_755_200}
+    if arch in total:
+        assert flops.param_counts(cfg)["total"] == total[arch]
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -276,15 +300,17 @@ def test_model_is_drawn_on_its_device_and_defaults_to_the_card(monkeypatch):
 def test_train_logits_match_reference(arch, t):
     rcfg, params, cfg, model = _ref_model(arch)
     tok = _tokens(cfg, 2, t)
-    ref, _, _ = rtransformer.forward(rcfg, params, jnp.asarray(tok),
-                                     mode="train")
+    ref, raux, _ = rtransformer.forward(rcfg, params, jnp.asarray(tok),
+                                        mode="train")
     with torch.no_grad():
         got, aux, cache = transformer.forward(cfg, model,
                                               torch.from_numpy(tok),
                                               mode="train")
     ref = np.asarray(ref)
     assert got.shape == ref.shape and got.dtype == torch.float32
-    assert float(aux) == 0.0 and cache == []
+    assert cache == [] and aux.dtype == torch.float32
+    assert abs(float(aux) - float(raux)) <= 1e-6
+    assert (float(aux) > 0) == (cfg.n_experts > 0)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=_tol(ref))
     # the loss forward too
     labels = _tokens(cfg, 2, t, seed=2)
@@ -297,6 +323,7 @@ def test_train_logits_match_reference(arch, t):
     assert abs(float(loss) - float(rloss)) <= 1e-5 * (1 + abs(float(rloss)))
     assert abs(float(met["ce"]) - float(rmet["ce"])) <= 1e-5 * (
         1 + abs(float(rmet["ce"])))
+    assert abs(float(met["aux"]) - float(rmet["aux"])) <= 1e-6
 
 
 @pytest.mark.parametrize("t", SEQ_LENS)
@@ -315,9 +342,13 @@ def test_prefill_logits_and_cache_match_reference(arch, t):
     ref_c = jax.tree.map(np.asarray, ref_cache)
     got_c = _numpy(convert.cache_to_reference(got_cache, cfg))
     assert jax.tree.structure(got_c) == jax.tree.structure(ref_c)
+    assert len(got_cache) == cfg.n_layers
+    for i, layer in enumerate(got_cache):
+        spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), 2, t)
+        assert {k: tuple(v.shape) for k, v in layer.items()} == {
+            k: v.shape for k, v in spec.items()}
     for g, r in zip(jax.tree.leaves(got_c), jax.tree.leaves(ref_c)):
-        assert g.shape == r.shape == (cfg.n_layers, 2, t, cfg.n_kv_heads,
-                                      cfg.head_dim)
+        assert g.shape == r.shape
         np.testing.assert_allclose(g, r, rtol=0, atol=_tol(r))
     # the full prefill forward (all positions) against the reference's
     ref_all, _, _ = rtransformer.forward(rcfg, params, jnp.asarray(tok),
@@ -354,13 +385,16 @@ def test_decode_step_logits_and_cache_match_reference(arch, s):
     np.testing.assert_allclose(got_lg.numpy(), ref_lg, rtol=0,
                                atol=_tol(ref_lg))
     got_c = _numpy(convert.cache_to_reference(got_new, cfg))
-    for g, r, before in zip(jax.tree.leaves(got_c),
-                            jax.tree.leaves(jax.tree.map(np.asarray, ref_new)),
-                            jax.tree.leaves(ref_cache)):
+    for g, r in zip(jax.tree.leaves(got_c),
+                    jax.tree.leaves(jax.tree.map(np.asarray, ref_new))):
         np.testing.assert_allclose(g, r, rtol=0, atol=_tol(r))
-        # only slot 3 changed
-        assert np.array_equal(np.delete(g, 3, axis=2),
-                              np.delete(before, 3, axis=2))
+    # only slot 3 changed, in place
+    assert all(layer[k] is port_cache[i][k]
+               for i, layer in enumerate(got_new) for k in layer)
+    for layer, before in zip(got_new, convert.cache_from_reference(ref_cache)):
+        for key, t in layer.items():
+            assert np.array_equal(np.delete(t.numpy(), 3, axis=1),
+                                  np.delete(before[key].numpy(), 3, axis=1))
 
 
 @pytest.mark.parametrize("arch", DENSE)
