@@ -182,14 +182,38 @@ Phases, each printing one JSON line:
  26. `main_lm_mla`: deepseek-v2-lite-16b at its published width and depth
      (15.50 B parameters): one request of 32,768 tokens, then 128 of
      3,072 + 64 greedy steps; MLA is torch ops, so no kernel launches;
- 27. `{"kernels": [...]}`: each ported kernel with its launches on every
+ 27. `lm_ssm_vs_plain`: rwkv6-3b (2 layers) and jamba-v0.1-52b (5
+     layers: four Mamba, two of them MoE, the attention layer at index
+     4) at full width: jamba's bf16 train-mode logits over S = 4096 with
+     the flash kernel against the plain attention, within 2^-5
+     max|logits| over the tokens whose routing did not flip, the kernel
+     held per element, a planted GQA head-mapping fault outside; both in
+     f32 at 1024 tokens (dropless): prefill against train and decode
+     against teacher forcing within 5e-3, rwkv chunk 32 against 64 and
+     mamba chunk 128 against 256 within 2e-3; planted faults, decode with
+     RWKV6's token shift (`xp_tm`) or Mamba's conv window (`conv`) zeroed
+     before every step (and at the last Mamba layer only, which must fail
+     the logit bound itself), outside the decode bound;
+ 28. `main_lm_rwkv`: rwkv6-3b at its published width and depth (2.93 B
+     parameters): prefill_32k at LM_RWKV_PREFILL_B requests (by time) and
+     decode_32k (128 requests of 3,072 + 64 greedy steps), the fields of
+     phases 20 and 21 plus `state_bytes` (the f32 WKV states and token
+     shifts the batch carries), no kernel launch;
+ 29. `main_lm_jamba`: jamba-v0.1-52b at its published width cut to
+     LM_JAMBA_LAYERS = 16 layers (25.79 B parameters): prefill_32k at
+     LM_JAMBA_PREFILL_B requests (by memory; 2 wgmma flash launches, both
+     held against the plain version, the logits finite before the timed
+     run) and decode_32k (64 flash launches on the prompts), the same
+     fields;
+ 30. `{"phase": "wall"}`: the script's wall seconds so far; then
+     `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
      per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
      one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
-     olmoe-1b-7b, 0 for MLA), 2 per layer per microbatch of a train
-     step), its error against the plain version and its times beside its
-     bound.
+     olmoe-1b-7b, 2 for jamba at 16 layers, 0 for MLA and RWKV6), 2 per
+     layer per microbatch of a train step), its error against the plain
+     version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -388,6 +412,53 @@ LM_MOE_LAYERS, LM_MOE_PLAIN_S, LM_MOE_F32_S, LM_MOE_DECODE = 2, 4096, 1024, 64
 # planted fault flips most tokens of the layer after it.
 FLIP_SHARE_MAX = 0.1
 
+# The RWKV6 and Mamba families (ROADMAP.md §A9 (iii) items 1-2) at their
+# published widths (src/repro_torch/configs/rwkv6_3b.py, jamba_v01_52b.py),
+# bf16, weights drawn on the card from a seed; the cuts, of memory or time:
+# - rwkv6-3b (32 layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65,536;
+#   2.93 B parameters, 5.86 GB) at full depth; prefill_32k cut from batch
+#   32 to LM_RWKV_PREFILL_B by time. A request of 32,768 tokens runs 512
+#   chunks of 64 through each of 32 layers, a Python loop of 16,384 chunk
+#   steps (ROADMAP.md §C (22)), each forming the masked (40, 64, 64, 64)
+#   f32 exponent tensor and its products (~10 passes of 42 MB), ~2 s of
+#   device time a request by its bytes; the phase runs the batch three
+#   times. Memory would allow ~24 requests (~3 GB a request above the
+#   weights: the f32 r/k/v/decay and WKV output, the five bf16 mixes and
+#   the channel mix's (S, 8960)).
+# - jamba-v0.1-52b (d 4096, 32 heads / 8 KV heads of 128 without RoPE,
+#   d_ff 14336, 16 experts top-2 on odd layers, Mamba d_state 16, conv 4,
+#   expand 2, vocab 65,536) cut in depth from 32 to LM_JAMBA_LAYERS by
+#   memory: two whole periods of 8 (2 attention, 14 Mamba and 8 MoE
+#   layers), 25.79 B parameters, 51.6 GB; the whole model (51.30 B, 102.6
+#   GB) exceeds the card. prefill_32k cut to LM_JAMBA_PREFILL_B by memory:
+#   a request's MoE layer (65,536 entries, capacity 1.25 · 2/16 of the
+#   tokens per expert) holds the experts' (16, 5121 b, 2, 14336) bf16 gate
+#   and up products (4.7 GB a request), the SiLU's temporary and their
+#   product (2.35 GB each), ~9.4 GB a request above the weights, beside
+#   ~5 GB of a Mamba layer's (S, 8192) activations: 2 requests peak near
+#   73 GB of the card's 85.0, 3 near 83 GB.
+# - decode_32k for both as llama3-8b's: 128 requests of 3,072 + 64 slots
+#   (rwkv's state 2.73 GB, jamba's 1.03 GB of state and 3.29 GB of K/V).
+# - lm_ssm_vs_plain: full width; rwkv6-3b 2 layers, jamba 5 layers (four
+#   Mamba layers, two of them MoE, and the first attention layer at index
+#   4); f32 at one request of 1024 tokens (dropless, as lm_moe_vs_plain),
+#   jamba also in bf16 at 4096 (the capacity regime).
+LM_RWKV_ARCH, LM_JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
+LM_RWKV_PREFILL_B, LM_JAMBA_PREFILL_B, LM_JAMBA_LAYERS = 4, 2, 16
+LM_SSM_LAYERS = {LM_RWKV_ARCH: 2, LM_JAMBA_ARCH: 5}
+LM_SSM_F32_S, LM_SSM_DECODE, LM_SSM_PLAIN_S = 1024, 64, 4096
+# chunk-size invariance, f32: max|d| <= 2e-3 max|logits|, the reference's
+# own bound (tests/test_consistency.py:82-83), at rwkv chunk 64 vs 32 and
+# mamba chunk 256 vs 128
+TOL_LM_CHUNK = 2e-3
+LM_SSM_CHUNKS = {"rwkv_chunk": 32, "mamba_chunk": 128}
+# a recurrent model's traced prefill: the first 2048 tokens of each
+# request (32 rwkv chunks, 8 mamba chunks a layer). The full 32,768 took
+# the profiler ~410 s (rwkv6-3b, ~1.5e6 events) and ~100 s (jamba) to
+# parse on an H100 80GB HBM3 host at 700 W; the chunk steps, the
+# GEMMs and the elementwise passes all scale with S alike
+LM_TRACE_PREFIX = 2048
+
 # The training path (ROADMAP.md §A9 (ii)): train_4k (configs/base.py:166)
 # at llama3-8b's published width, remat on, one AdamW step per call of
 # `make_train_step`. Each cut is one of memory or time on an 80 GB card:
@@ -521,6 +592,14 @@ def compare_full_size(kern, plain, ts_rows, ts_cols, m, jpad,
     return out
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def phase_device() -> tuple[str, str]:
     import torch
 
@@ -528,10 +607,7 @@ def phase_device() -> tuple[str, str]:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         sys.exit(1)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = _smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -2997,19 +3073,45 @@ def _logits_vs(got, want, tol: float) -> dict:
             "ok": err <= tol * scale and not bool((differ & ~near).any())}
 
 
-def _copy_cache(cache, pre, rows: slice, n: int) -> None:
-    """Copy a prefill cache `pre` (n slots) into rows `rows`, slots 0..n-1,
-    of the decode cache `cache` (either layout: {k, v} or {ckv, kr})."""
-    for layer, pc in zip(cache, pre):
+def _is_state(sp) -> bool:
+    """A cache leaf without a sequence axis: RWKV6's state and token
+    shifts, Mamba's SSM state and conv window."""
+    return "kv_seq" not in sp.axes
+
+
+def _copy_cache(cfg, cache, pre, rows: slice, n: int) -> None:
+    """Copy a prefill cache `pre` (n slots) into rows `rows` of the decode
+    cache `cache`: slots 0..n-1 of a leaf with a sequence axis ({k, v},
+    {ckv, kr}), a recurrent state leaf whole."""
+    from repro_torch.models import transformer
+
+    for i, (layer, pc) in enumerate(zip(cache, pre)):
+        spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), 1, n)
         for key, t in pc.items():
-            layer[key][rows, :n] = t
+            if _is_state(spec[key]):
+                layer[key][rows] = t
+            else:
+                layer[key][rows, :n] = t
 
 
-def _lm_decode_run(cfg, model, tokens, n_prefill: int):
+def _cache_bytes(cfg, b: int, s: int, states: bool | None = None) -> int:
+    """Bytes of the decode cache of b requests and s slots, in each leaf's
+    dtype (the states are f32); only the state leaves, or only the
+    others, with `states` True or False."""
+    from repro_torch.models import transformer
+
+    return sum(int(np.prod(sp.shape)) * sp.dtype.itemsize
+               for layer in transformer.cache_spec(cfg, b, s)
+               for sp in layer.values()
+               if states is None or _is_state(sp) == states)
+
+
+def _lm_decode_run(cfg, model, tokens, n_prefill: int, before_step=None):
     """Prefill tokens[:, :n_prefill] through the prefill step, copy the
     cache into one of tokens.shape[1] slots (the prefill cache has exactly
-    n_prefill), then decode the rest teacher-forced. Returns the decode
-    logits (B, T, V) for positions n_prefill..S-1."""
+    n_prefill), then decode the rest teacher-forced, calling
+    `before_step(cache)` before each step where given (a planted fault).
+    Returns the decode logits (B, T, V) for positions n_prefill..S-1."""
     import torch
 
     from repro_torch.models import steps, transformer
@@ -3018,11 +3120,13 @@ def _lm_decode_run(cfg, model, tokens, n_prefill: int):
     _, pre = steps.make_prefill_step(cfg)(
         model, {"tokens": tokens[:, :n_prefill]})
     cache = transformer.init_cache(cfg, model, b, s)
-    _copy_cache(cache, pre, slice(None), n_prefill)
+    _copy_cache(cfg, cache, pre, slice(None), n_prefill)
     del pre
     dec = steps.make_decode_step(cfg)
     out = []
     for t in range(n_prefill, s):
+        if before_step is not None:
+            before_step(cache)
         lg, cache = dec(model, cache, {"tokens": tokens[:, t:t + 1],
                                        "cache_len": t})
         out.append(lg)
@@ -3035,11 +3139,12 @@ def _attn_layers(cfg) -> int:
 
 
 def _check_layers(cfg) -> tuple[int, ...]:
-    """The layers whose flash calls `_FlashCheck` holds: first, middle,
-    last (flash call i is layer i's: every layer is GQA); none for MLA."""
-    if _attn_layers(cfg) == 0:
-        return ()
-    return (0, cfg.n_layers // 2, cfg.n_layers - 1)
+    """The flash calls of a prefill that `_FlashCheck` holds: the first,
+    middle and last GQA layer's (flash call i is the i-th GQA layer's: all
+    of llama3-8b's and olmoe-1b-7b's layers, jamba's at in-period index 4);
+    none for MLA and RWKV6."""
+    n = _attn_layers(cfg)
+    return tuple(sorted({0, n // 2, n - 1})) if n else ()
 
 
 def _finite(t) -> bool:
@@ -3062,16 +3167,21 @@ def _cache_ok(cfg, cache, b: int, s: int) -> bool:
 def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
                      batch: int = LM_PREFILL_B,
                      seed: int = SEED + 41) -> dict:
-    """A model at its published width and depth: `batch` requests of
-    32,768 tokens as one batch through `make_prefill_step`, each GQA
-    layer's causal attention through the flash kernel (one wgmma launch a
-    layer; MLA launches none). With flash calls, a first run holds the
-    kernel at three layers against the plain version on the model's own
-    q/k/v; then a run counted and timed (the kernel wrapped in CUDA
-    events, the peak memory read from it), and one traced; beside the
-    bound from `model_flops`. The logits and the cache are finite, and the
-    traced run's logits equal the timed run's bit for bit (no atomics on
-    the path: flash, cuBLAS, the MoE dispatch and combine)."""
+    """A model at its published width (and depth, or `cfg`'s cut):
+    `batch` requests of 32,768 tokens as one batch through
+    `make_prefill_step`, each GQA layer's causal attention through the
+    flash kernel (one wgmma launch a layer; MLA and RWKV6 launch none).
+    With flash calls or recurrent states, a first run holds the kernel at
+    three layers against the plain version on the model's own q/k/v and
+    its logits finite (the reference's init rule gives jamba's Mamba
+    inputs a scale near 45); then a run counted and timed (the kernel
+    wrapped in CUDA events, the peak memory read from it), and one traced;
+    beside the bound from `model_flops` and the bytes of the recurrent
+    state the batch carries out (`state_bytes`, which `hbm_bytes_floor`
+    does not count). The logits and the cache are finite, and the traced
+    run's logits equal the timed run's bit for bit (no atomics on the
+    path: flash, cuBLAS, the MoE dispatch and combine, the chunked
+    scans)."""
     import torch
 
     from repro_torch.configs import ShapeSpec
@@ -3080,12 +3190,15 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
 
     b, s = batch, LM_PREFILL_S
     n_attn = _attn_layers(cfg)
+    state_bytes = _cache_bytes(cfg, b, s, states=True)
     tokens = _lm_tokens(np.random.default_rng(seed), cfg, b, s)
     step = steps.make_prefill_step(cfg)
+    lg1 = None
     with _FlashCheck(_check_layers(cfg)) as chk:
-        if n_attn:
-            step(model, {"tokens": tokens})
+        if n_attn or state_bytes:
+            lg1 = step(model, {"tokens": tokens})[0]
             torch.cuda.synchronize()
+            check(_finite(lg1), f"{cfg.name} prefill logits not finite")
     check(chk.ok(), f"in-model flash vs plain: {chk.results}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3106,13 +3219,29 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
           "prefill logits")
     check(_cache_ok(cfg, cache, b, s), "prefill cache")
     del cache
-    again = []
-    trace = _device_time(
-        lambda: again.append(step(model, {"tokens": tokens})[0]), 1)
-    repeat = torch.equal(again[0], lg2)
+    if state_bytes:
+        # a recurrent model's prefill repeats the same chunk steps along
+        # the sequence (~1e5-1e6 kernels at 32,768 tokens, which the
+        # profiler takes minutes to parse): trace a prefix of each request
+        # beside its own unprofiled wall time; its first run repeats
+        repeat = torch.equal(lg1, lg2)
+        head = {"tokens": tokens[:, :LM_TRACE_PREFIX]}
+        t0 = time.perf_counter()
+        step(model, head)
+        torch.cuda.synchronize()
+        trace_wall_s = time.perf_counter() - t0
+        trace = _device_time(lambda: step(model, head), 1)
+        trace["tokens_per_request"] = LM_TRACE_PREFIX
+    else:
+        again = []
+        trace = _device_time(
+            lambda: again.append(step(model, {"tokens": tokens})[0]), 1)
+        repeat, trace_wall_s = torch.equal(again[0], lg2), warm_s
+    del lg1
     check(repeat, "the prefill did not repeat bit for bit")
     if trace["device_ms_per_call"] is not None:
-        trace["idle_share"] = 1 - trace["device_ms_per_call"] / (1e3 * warm_s)
+        trace["idle_share"] = (1 - trace["device_ms_per_call"]
+                               / (1e3 * trace_wall_s))
     flash_ms = timer.ms()
     check(len(flash_ms) == n_attn, "the timed prefill's flash calls")
     shape = ShapeSpec(f"prefill_32k_b{b}", s, b, "prefill")
@@ -3121,7 +3250,7 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
     t_bytes = flops.hbm_bytes_floor(cfg, shape, 1) / HBM_RATE
     bound_s = max(t_ops, t_bytes)
     out = {"phase": phase, "cell": "prefill_32k",
-           "card": torch.cuda.get_device_name(0),
+           "card": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
            "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": "bfloat16",
@@ -3133,6 +3262,7 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
            "prefill_s": warm_s, "tokens_per_s": b * s / warm_s,
            "peak_device_bytes": peak,
            "model_flops": mf, "bound_s": bound_s,
+           "state_bytes": state_bytes,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "share_of_bound": bound_s / warm_s,
            "flash_ms_in_model": sum(flash_ms),
@@ -3151,9 +3281,11 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
     one decode cache of prompt + LM_DECODE_STEPS slots, then
     LM_DECODE_STEPS greedy steps (`greedy_next`) over the whole batch,
     each timed to its synchronize, beside the per-step bound from
-    `hbm_bytes_floor`. Before the timed run, one chunk's prefill holds the
-    kernel at three layers against the plain version on the model's own
-    q/k/v (GQA)."""
+    `hbm_bytes_floor` and the recurrent state's bytes (`state_bytes`: each
+    step reads and writes them; the floor does not count them). A prompt
+    chunk's cache goes into the decode cache by `_copy_cache`. Before the
+    timed run, one chunk's prefill holds the kernel at three layers
+    against the plain version on the model's own q/k/v (GQA)."""
     import torch
 
     from repro_torch.configs import ShapeSpec
@@ -3172,9 +3304,8 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
                     f"{chk.results}")
     torch.cuda.synchronize()
     free_bytes, total_bytes = torch.cuda.mem_get_info()
-    cache_bytes = sum(int(np.prod(sp.shape)) * 2 for layer in
-                      transformer.cache_spec(cfg, b, p + n)
-                      for sp in layer.values())
+    cache_bytes = _cache_bytes(cfg, b, p + n)
+    state_bytes = _cache_bytes(cfg, b, p + n, states=True)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     cache = transformer.init_cache(cfg, model, b, p + n)
@@ -3182,7 +3313,7 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
     last = []
     for r0 in range(0, b, c):
         lg, pre = prefill(model, {"tokens": tokens[r0:r0 + c]})
-        _copy_cache(cache, pre, slice(r0, r0 + c), p)
+        _copy_cache(cfg, cache, pre, slice(r0, r0 + c), p)
         last.append(lg)
         del pre
     torch.cuda.synchronize()
@@ -3228,7 +3359,7 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
     if trace["device_ms_per_call"] is not None:
         trace["idle_share"] = 1 - trace["device_ms_per_call"] / med
     out = {"phase": phase, "cell": "decode_32k",
-           "card": torch.cuda.get_device_name(0),
+           "card": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
            "arch": cfg.name, "batch": b, "prompt": p, "steps": n,
            "cache_slots": p + n, "prefill_chunk": c, **_lm_setup(),
            "cache_bytes": cache_bytes, "free_bytes_before": free_bytes,
@@ -3243,7 +3374,8 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
            "tokens_per_s": b * n / (1e-3 * sum(step_ms)),
            "bound_ms": bound_ms,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "floor_bytes": floor_bytes, "share_of_bound": bound_ms / med,
+           "floor_bytes": floor_bytes, "state_bytes": state_bytes,
+           "share_of_bound": bound_ms / med,
            "peak_device_bytes": peak, "trace": trace,
            "tokens_request0": toks[0, :8].tolist()}
     emit(out)
@@ -3328,14 +3460,17 @@ def phase_lm_vs_plain() -> dict:
 
 
 def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
-                prefill_b: int, seed: int) -> dict:
-    """One model at its published width and depth, built once on the card
-    from `seed` for its prefill and decode phases, then freed."""
+                prefill_b: int, seed: int, layers: int | None = None) -> dict:
+    """One model at its published width and depth (or `layers` deep),
+    built once on the card from `seed` for its prefill and decode phases,
+    then freed."""
     import torch
 
     from repro_torch import configs
 
     cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = _lm_model(cfg, seed)
@@ -3348,8 +3483,8 @@ def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
     dec = phase_lm_decode(model, cfg, phase=decode_phase, seed=seed + 2)
     del model
     torch.cuda.empty_cache()
-    emit({"phase": "lm_model", "arch": cfg.name, "build_s": build_s,
-          "weight_bytes": weights})
+    emit({"phase": "lm_model", "arch": cfg.name, "layers": cfg.n_layers,
+          "build_s": build_s, "weight_bytes": weights})
     return {"prefill": pre, "decode": dec, "build_s": build_s,
             "weight_bytes": weights}
 
@@ -3601,6 +3736,190 @@ def phase_lm_moe_vs_plain() -> dict:
                       _consistency_f32(LM_MLA_ARCH, SEED + 54)]
     check(out["train_vs_plain"]["ok"],
           f"lm_moe_vs_plain train_vs_plain: {out['train_vs_plain']}")
+    emit(out)
+    return out
+
+
+def _zero_leaf(key: str, layers=None):
+    """A planted fault for `_lm_decode_run`: before each step, the cache
+    leaf `key` set to 0 in every layer that has one (or in `layers` only)
+    (`xp_tm`: RWKV6's token shift dropped; `conv`: Mamba's conv window
+    dropped)."""
+    def fault(cache):
+        for i, layer in enumerate(cache):
+            if key in layer and (layers is None or i in layers):
+                layer[key].zero_()
+    return fault
+
+
+def _ssm_f32(arch: str, seed: int, model=None) -> dict:
+    """One model of the RWKV6 or Mamba family at full width,
+    LM_SSM_LAYERS[arch] layers, f32 compute over its bf16 weights, one
+    request of LM_SSM_F32_S tokens (jamba's MoE dispatch dropless on every
+    side): prefill against train and decode against teacher forcing
+    (LM_SSM_DECODE steps after a prefill of the rest) within
+    TOL_LM_DECODE, train at the chunks of LM_SSM_CHUNKS against train at
+    the config's within TOL_LM_CHUNK, each over the tokens whose routing
+    did not flip (`_routed_vs`; RWKV6 routes nothing); a planted fault,
+    the decode run with the token shift (`xp_tm`, RWKV6) or the conv window
+    (`conv`, Mamba) zeroed before every step, must fail the decode bound.
+    A Mamba fault reroutes the tokens of every MoE layer after it, which
+    the bound counts as flips; jamba's every Mamba layer precedes a
+    router, so the fault also runs at the last Mamba layer alone, where it
+    reroutes only that layer's MoE, and the logits of the tokens that keep
+    their routing must then fail the bound themselves (`logits_ok`)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=LM_SSM_LAYERS[arch],
+                              dtype=torch.float32)
+    if model is None:
+        model = _lm_model(cfg, seed)
+    s, t, v = LM_SSM_F32_S, LM_SSM_DECODE, cfg.vocab_size
+    tokens = _lm_tokens(np.random.default_rng(seed + 1), cfg, 1, s)
+    nm, n_attn = _moe_layers(cfg), _attn_layers(cfg)
+    chunked_cfg = dataclasses.replace(cfg, **LM_SSM_CHUNKS)
+    fault_key = "xp_tm" if cfg.rwkv_mode else "conv"
+    reset_counts()
+    with _RoutingLog() as rt:
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+    with _RoutingLog() as rp:
+        pre, _, _ = transformer.forward(cfg, model, tokens, mode="prefill")
+    with _RoutingLog() as rc:
+        chunked, _, _ = transformer.forward(chunked_cfg, model, tokens,
+                                            mode="train")
+    with _RoutingLog() as rd:
+        dec = _lm_decode_run(cfg, model, tokens, s - t)
+    counts = read_counts()
+    check(counts["flash_attn_routes"] == {"wgmma": 0, "fma": 4 * n_attn}
+          and counts["natsa_mp"] == 0, f"{arch} f32 launches {counts}")
+    faults = {"planted_fault": None}
+    if nm:
+        faults["planted_fault_last_layer"] = {max(
+            i for i in range(cfg.n_layers)
+            if cfg.layer_kind(i).mixer == "mamba")}
+    runs = {}
+    for name, layers in faults.items():
+        with _RoutingLog() as rf:
+            runs[name] = (_lm_decode_run(cfg, model, tokens, s - t,
+                                         before_step=_zero_leaf(fault_key,
+                                                                layers)),
+                          rf)
+
+    def flips(log, n):
+        return (_flipped(log.stacked(), rt.stacked()) if nm
+                else np.zeros(n, dtype=bool))
+
+    def decode_flips(log):
+        if not nm:
+            return np.zeros(t, dtype=bool)
+        teacher = tuple(x[:, s - t:] for x in rt.stacked())      # B = 1
+        return _flipped(_decode_routing(log, nm, 1, t), teacher)
+
+    want = full[:, s - t:, :v]
+    out = {"arch": arch, "layers": cfg.n_layers, "seq_len": s,
+           "decode_steps": t, "counts": counts,
+           "state_bytes": _cache_bytes(cfg, 1, s, states=True),
+           "prefill_vs_train": _routed_vs(pre[..., :v], full[..., :v],
+                                          flips(rp, s), TOL_LM_DECODE),
+           "decode_vs_teacher": _routed_vs(dec[..., :v], want,
+                                           decode_flips(rd), TOL_LM_DECODE),
+           "chunks": {k: [getattr(cfg, k), c]
+                      for k, c in LM_SSM_CHUNKS.items()},
+           "chunk_invariance": _routed_vs(chunked[..., :v], full[..., :v],
+                                          flips(rc, s), TOL_LM_CHUNK)}
+    for name, layers in faults.items():
+        fault, rf = runs[name]
+        where = "every layer" if layers is None else f"layer {min(layers)}"
+        out[name] = {
+            "fault": f"decode with `{fault_key}` zeroed at {where} before "
+                     "each step",
+            **_routed_vs(fault[..., :v], want, decode_flips(rf),
+                         TOL_LM_DECODE)}
+        check(not out[name]["ok"],
+              f"the decode bound passes a planted fault: {out[name]}")
+    if nm:
+        check(not out["planted_fault_last_layer"]["logits_ok"],
+              "the logit bound passes the last-layer fault: "
+              f"{out['planted_fault_last_layer']}")
+    for key in ("prefill_vs_train", "decode_vs_teacher", "chunk_invariance"):
+        check(out[key]["ok"], f"lm_ssm_vs_plain {arch} {key}: {out[key]}")
+    return out
+
+
+def _jamba_bf16(model, cfg, seed: int) -> dict:
+    """jamba's LM_SSM_LAYERS layers in bf16 over one request of
+    LM_SSM_PLAIN_S tokens: the train-mode logits with the flash kernel
+    (wgmma) against the same model with the kernel call swapped for its
+    plain version, within TOL_LM_BF16 over the tokens whose routing did
+    not flip (at most FLIP_SHARE_MAX), the kernel held per element on the
+    model's own q/k/v. A GQA head-mapping fault (`_PlainFlash` with K/V
+    heads tiled) is read and reported, not gated: jamba's random weights
+    under the reference's init rule give its Mamba layers outputs that
+    dwarf the attention layer's in the residual stream (its inputs ~45 in
+    scale), so the logits hardly see attention (the fault read 2.0e-3 of
+    max|logits| against 2^-5 on an H100 80GB HBM3 at 700 W); the
+    kernel is held per element inside the model instead."""
+    from repro_torch.models import transformer
+
+    tokens = _lm_tokens(np.random.default_rng(seed), cfg, 1, LM_SSM_PLAIN_S)
+    n_attn, v = _attn_layers(cfg), cfg.vocab_size
+    reset_counts()
+    with _RoutingLog() as rk, _FlashCheck(range(n_attn)) as chk:
+        full, aux, _ = transformer.forward(cfg, model, tokens, mode="train")
+    counts = read_counts()
+    check(counts["flash_attn_routes"] == {"wgmma": n_attn, "fma": 0}
+          and counts["natsa_mp"] == 0,
+          f"lm_ssm_vs_plain kernel launches {counts}")
+    check(chk.ok(), f"in-model flash vs plain: {chk.results}")
+    with _PlainFlash(), _RoutingLog() as rp:
+        plain, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+    with _PlainFlash(kv_heads=cfg.n_kv_heads), _RoutingLog() as rf:
+        fault, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+    check(read_counts() == counts, "the plain run launched a kernel")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "seq_len": LM_SSM_PLAIN_S, "counts": counts,
+           "in_model_vs_plain": chk.results, "aux": float(aux),
+           "logits_finite": _finite(full),
+           "train_vs_plain": _routed_vs(
+               full[..., :v], plain[..., :v],
+               _flipped(rk.stacked(), rp.stacked()), TOL_LM_BF16)}
+    out["gqa_fault_reading"] = {
+        "fault": "K/V heads tiled, not interleaved (query head j reads KV "
+                 "head j % n_kv_heads); reported, not gated",
+        **_routed_vs(fault[..., :v], plain[..., :v],
+                     _flipped(rf.stacked(), rp.stacked()), TOL_LM_BF16)}
+    check(out["logits_finite"], "jamba bf16 logits not finite")
+    check(out["train_vs_plain"]["ok"],
+          f"lm_ssm_vs_plain jamba train_vs_plain: {out['train_vs_plain']}")
+    return out
+
+
+def phase_lm_ssm_vs_plain() -> dict:
+    """rwkv6-3b and jamba-v0.1-52b at full width, LM_SSM_LAYERS layers
+    each (jamba's: four Mamba layers, two of them MoE, and the attention
+    layer at index 4): jamba in bf16 through the flash kernel against its
+    plain version (`_jamba_bf16`), then `_ssm_f32` on both, jamba's on the
+    same weights."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(LM_JAMBA_ARCH),
+                              n_layers=LM_SSM_LAYERS[LM_JAMBA_ARCH])
+    out = {"phase": "lm_ssm_vs_plain", "card": torch.cuda.get_device_name(0),
+           **_lm_setup()}
+    with torch.no_grad():
+        model = _lm_model(cfg, SEED + 80)
+        out["jamba_bf16"] = _jamba_bf16(model, cfg, SEED + 81)
+        out["f32"] = [_ssm_f32(LM_RWKV_ARCH, SEED + 82),
+                      _ssm_f32(LM_JAMBA_ARCH, SEED + 84, model)]
+        del model
+    out["counts"] = {"jamba_bf16": out["jamba_bf16"]["counts"],
+                     **{f"{r['arch']}_f32": r["counts"] for r in out["f32"]}}
     emit(out)
     return out
 
@@ -4095,6 +4414,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     small_err = phase_kernel_cases()
@@ -4123,6 +4443,13 @@ def main() -> None:
                          LM_MOE_PREFILL_B, SEED + 60)
     lm_mla = _lm_serving(LM_MLA_ARCH, "main_lm_mla", "main_lm_mla",
                          LM_MLA_PREFILL_B, SEED + 70)
+    ssm_plain = phase_lm_ssm_vs_plain()
+    torch.cuda.empty_cache()
+    lm_rwkv = _lm_serving(LM_RWKV_ARCH, "main_lm_rwkv", "main_lm_rwkv",
+                          LM_RWKV_PREFILL_B, SEED + 90)
+    lm_jamba = _lm_serving(LM_JAMBA_ARCH, "main_lm_jamba", "main_lm_jamba",
+                           LM_JAMBA_PREFILL_B, SEED + 100,
+                           layers=LM_JAMBA_LAYERS)
     phase_lm_train_vs_plain()
     tr = phase_lm_train()
     cli = phase_lm_train_cli()
@@ -4148,7 +4475,12 @@ def main() -> None:
                  "lm_moe_decode": lm_moe["decode"],
                  "lm_mla_prefill": lm_mla["prefill"],
                  "lm_mla_decode": lm_mla["decode"],
+                 "lm_rwkv_prefill": lm_rwkv["prefill"],
+                 "lm_rwkv_decode": lm_rwkv["decode"],
+                 "lm_jamba_prefill": lm_jamba["prefill"],
+                 "lm_jamba_decode": lm_jamba["decode"],
                  "lm_train": tr, "lm_train_cli": cli}
+    emit({"phase": "wall", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -4183,7 +4515,7 @@ def main() -> None:
         "replaces": FLASH_REPLACES,
         "launches": (fl["launches"]
                      + sum(m[ph]["counts"]["flash_attn"]
-                           for m in (lm, lm_moe, lm_mla)
+                           for m in (lm, lm_moe, lm_mla, lm_rwkv, lm_jamba)
                            for ph in ("prefill", "decode"))
                      + tr["counts"]["flash_attn"]
                      + cli["counts"]["flash_attn"]),
@@ -4207,15 +4539,23 @@ def main() -> None:
         "lm_moe_prefill": {f: lm_moe["prefill"][f] for f in (
             "batch", "flash_launches", "flash_ms_in_model",
             "flash_ms_per_layer", "flash_share", "prefill_s", "bound_s")},
+        "lm_jamba_prefill": {f: lm_jamba["prefill"][f] for f in (
+            "batch", "layers", "flash_launches", "flash_ms_in_model",
+            "flash_ms_per_layer", "flash_share", "prefill_s", "bound_s")},
         "lm_in_model_max_element_ratio": max(
-            r["element_ratio"] for m in (lm, lm_moe)
+            r["element_ratio"] for m in (lm, lm_moe, lm_jamba)
             for ph in ("prefill", "decode")
             for r in m[ph]["in_model_vs_plain"]),
         "lm_moe_vs_plain_max_element_ratio": max(
             r["element_ratio"] for r in moe_plain["in_model_vs_plain"]),
+        "lm_ssm_vs_plain_max_element_ratio": max(
+            r["element_ratio"]
+            for r in ssm_plain["jamba_bf16"]["in_model_vs_plain"]),
         "lm_mla": "no kernel: MLA attention is torch ops (QK width "
                   "r + dr = 576 and V width r = 512 exceed the kernel's "
                   "head dims, its scale is not 1/sqrt(D))",
+        "lm_rwkv": "no kernel: RWKV6 has no attention layer; its chunked "
+                   "WKV recurrence is torch ops, as the reference's is jnp",
         "lm_train": {f: tr[f] for f in (
             "flash_launches", "flash_ms_per_launch",
             "plain_backward_ms_per_call", "train_step_s_median",

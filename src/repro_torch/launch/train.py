@@ -9,12 +9,12 @@ Runs on the CUDA card unless `--device cpu` is given. Restart resumes
 from the newest intact checkpoint automatically. Checkpoints are written
 in the reference's tree layout (`models.convert.params_to_reference`:
 params and both AdamW moments stacked as `cfg.layer_groups()` says), so a
-run resumes across packages, in either direction. The GQA, MoE and MLA
-families train here (llama3-8b, qwen2-7b, qwen2.5-32b, olmoe-1b-7b,
-deepseek-v2-lite-16b, minicpm3-4b; the loss adds `steps.AUX_WEIGHT` times
-the MoE layers' aux); rwkv6-3b, jamba-v0.1-52b, whisper-large-v3 and
-qwen2-vl-2b raise `NotImplementedError` naming ROADMAP.md §A9 (iii), as
-model construction does.
+run resumes across packages, in either direction. The GQA, MoE, MLA,
+RWKV6 and Mamba families train here (llama3-8b, qwen2-7b, qwen2.5-32b,
+olmoe-1b-7b, deepseek-v2-lite-16b, minicpm3-4b, rwkv6-3b,
+jamba-v0.1-52b; the loss adds `steps.AUX_WEIGHT` times the MoE layers'
+aux); whisper-large-v3 and qwen2-vl-2b raise `NotImplementedError` naming
+ROADMAP.md §A9 (iii), as model construction does.
 """
 
 from __future__ import annotations

@@ -206,6 +206,11 @@ def promote(x, w):
     return x.to(dt), w.to(dt)
 
 
+def matmul(x, w):
+    """x @ w in their common dtype (jnp's promotion)."""
+    return torch.matmul(*promote(x, w))
+
+
 def dense_spec(d_in: int, d_out: int, axes=("embed", "mlp"), *, bias=False,
                scale=1.0) -> Tree:
     s: Tree = {"w": ParamSpec((d_in, d_out), axes, scale=scale)}

@@ -109,7 +109,8 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig, *,
 
 def make_prefill_step(cfg: ModelConfig):
     """(params, batch{tokens (B, S)}) -> (last-position logits (B, 1, V),
-    cache: a list of per-layer {k, v} or {ckv, kr} of S slots)."""
+    cache: a list of per-layer caches, `transformer.layer_cache_spec`'s,
+    with S slots where a leaf has a sequence axis)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -125,7 +126,7 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig):
     """(params, cache, batch{tokens (B, 1), cache_len}) -> (logits, cache);
     the cache is written in place (`attention.gqa_decode`,
-    `attention.mla_decode`)."""
+    `attention.mla_decode`, `rwkv.time_mix_step`, `mamba.mamba_step`)."""
 
     @torch.no_grad()
     def decode_step(params, cache, batch):

@@ -1,21 +1,27 @@
 """LM assembly — port of `repro.models.transformer` for the dense GQA,
-MLA and MoE families.
+MLA, MoE, RWKV6 and Mamba / attention hybrid families.
 
 The reference scans stacked "period" parameters; here the stack is a loop
 over per-layer modules (`Transformer.layers`, one `ParamTree` each),
 and `models.convert` carries weights between the two layouts. A model is
 built on the card unless `device="cpu"` is given, its weights drawn layer
 by layer from a `torch.Generator` on that device. A layer's mixer is GQA
-attention (`attn`) or multi-head latent attention (`mla`), its FFN a
-SwiGLU, a GELU MLP or a routed MoE (`moe`): llama3-8b, qwen2-7b,
-qwen2.5-32b, olmoe-1b-7b, deepseek-v2-lite-16b (its dense first layer
-included) and minicpm3-4b. RWKV, Mamba, the encoder-decoder with
-cross-attention and M-RoPE raise `NotImplementedError` naming ROADMAP.md
-§A9 (iii).
+attention (`attn`), multi-head latent attention (`mla`), RWKV6 time mixing
+(`rwkv`) or a Mamba selective SSM (`mamba`), its FFN a SwiGLU, a GELU MLP,
+a routed MoE (`moe`) or RWKV6 channel mixing (`rwkv_cm`): llama3-8b,
+qwen2-7b, qwen2.5-32b, olmoe-1b-7b, deepseek-v2-lite-16b (its dense first
+layer included), minicpm3-4b, rwkv6-3b and jamba-v0.1-52b (Mamba layers,
+GQA without RoPE at in-period index 4, MoE on odd layers). The
+encoder-decoder with cross-attention and M-RoPE raise
+`NotImplementedError` naming ROADMAP.md §A9 (iii).
 
 Modes: train (no cache), prefill (returns the cache), decode (one token;
-writes the cache in place, see `attention.gqa_decode` and
-`attention.mla_decode`). The output head is tied: `x @ emb.T`. Each MoE
+writes the cache in place, see `attention.gqa_decode`,
+`attention.mla_decode`, `rwkv.time_mix_step` and `mamba.mamba_step`). A
+layer's cache is {k, v} (GQA), {ckv, kr} (MLA), {state, xp_tm, xp_cm}
+(RWKV6: the f32 WKV state and the token shifts of both mixers) or {ssm,
+conv} (Mamba: the f32 SSM state and the conv window). The output head is
+tied: `x @ emb.T`. Each MoE
 layer returns its load-balancing aux loss; `trunk` sums them. With
 `cfg.remat`, a train-mode forward under autograd recomputes each layer in
 the backward (`torch.utils.checkpoint`, non-reentrant): only the layer's
@@ -30,7 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, mamba, moe, rwkv
 from repro_torch.models.common import (
     ParamSpec, ParamTree, Tree, empty_params, init_params, make_norm,
     tree_map,
@@ -40,8 +46,8 @@ from repro_torch.utils.device import resolve_device
 UNPORTED = "ROADMAP.md §A9 (iii)"
 
 
-MIXERS = ("attn", "mla")
-FFNS = ("swiglu", "gelu", "moe")
+MIXERS = ("attn", "mla", "rwkv", "mamba")
+FFNS = ("swiglu", "gelu", "moe", "rwkv_cm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -61,8 +67,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if parts:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(parts))} is not ported yet "
-            f"({UNPORTED}); this package builds the GQA, MLA and MoE "
-            "families only")
+            f"({UNPORTED}); this package builds the GQA, MLA, MoE, RWKV6 "
+            "and Mamba families only")
 
 
 # ---------------------------------------------------------------------------
@@ -74,12 +80,15 @@ def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> Tree:
         raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
     d = cfg.d_model
     norm_spec, _ = make_norm(cfg.norm_type, d)
-    mixer = (attention.gqa_spec(cfg) if ls.mixer == "attn"
-             else attention.mla_spec(cfg))
+    mixer = {"attn": attention.gqa_spec, "mla": attention.mla_spec,
+             "rwkv": rwkv.time_mix_spec,
+             "mamba": mamba.mamba_spec}[ls.mixer](cfg)
     if ls.ffn == "moe":
         ffn = moe.moe_spec(cfg)
     elif ls.ffn == "swiglu":
         ffn = moe.swiglu_spec(d, ls.d_ff)
+    elif ls.ffn == "rwkv_cm":
+        ffn = rwkv.channel_mix_spec(cfg)
     else:
         ffn = moe.gelu_mlp_spec(d, ls.d_ff)
     return {"ln1": norm_spec, "mixer": mixer, "ln2": norm_spec, "ffn": ffn}
@@ -104,6 +113,22 @@ def model_spec(cfg: ModelConfig) -> Tree:
 
 
 def layer_cache_spec(cfg: ModelConfig, ls: LayerSpec, b: int, s: int) -> Tree:
+    d = cfg.d_model
+    if ls.mixer == "rwkv":
+        h, k = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        shift = ParamSpec((b, 1, d), ("batch", "null", "embed"),
+                          dtype=cfg.dtype)
+        return {"state": ParamSpec((b, h, k, k),
+                                   ("batch", "heads", "head_dim", "null"),
+                                   dtype=torch.float32),
+                "xp_tm": shift, "xp_cm": shift}
+    if ls.mixer == "mamba":
+        di = cfg.mamba_expand * d
+        return {"ssm": ParamSpec((b, di, cfg.mamba_d_state),
+                                 ("batch", "mlp", "state"),
+                                 dtype=torch.float32),
+                "conv": ParamSpec((b, cfg.mamba_conv - 1, di),
+                                  ("batch", "null", "mlp"), dtype=cfg.dtype)}
     if ls.mixer == "mla":
         return {"ckv": ParamSpec((b, s, cfg.kv_lora_rank),
                                  ("batch", "kv_seq", "kv_lora"),
@@ -177,9 +202,29 @@ def _norm(cfg):
 
 
 def _mixer(cfg, ls, p, h, *, mode, positions, cache, cache_len):
-    """The layer's attention in `mode`: (output, new cache entries)."""
+    """The layer's mixer in `mode`: (output, new cache entries)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode}")
+    if ls.mixer == "rwkv":
+        if mode == "decode":
+            o, st, xp = rwkv.time_mix_step(cfg, p, h, cache["state"],
+                                           cache["xp_tm"])
+            return o, {"state": st, "xp_tm": xp}
+        if mode == "prefill":
+            o, st, xp = rwkv.time_mix_full(cfg, p, h, chunk=cfg.rwkv_chunk,
+                                           return_state=True)
+            return o, {"state": st, "xp_tm": xp}
+        return rwkv.time_mix_full(cfg, p, h, chunk=cfg.rwkv_chunk), {}
+    if ls.mixer == "mamba":
+        if mode == "decode":
+            o, st, cv = mamba.mamba_step(cfg, p, h, cache["ssm"],
+                                         cache["conv"])
+            return o, {"ssm": st, "conv": cv}
+        if mode == "prefill":
+            o, st, cv = mamba.mamba_full(cfg, p, h, chunk=cfg.mamba_chunk,
+                                         return_state=True)
+            return o, {"ssm": st, "conv": cv}
+        return mamba.mamba_full(cfg, p, h, chunk=cfg.mamba_chunk), {}
     if ls.mixer == "mla":
         if mode == "decode":
             return attention.mla_decode(cfg, p, h, cache, cache_len,
@@ -208,6 +253,14 @@ def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
     aux = 0.0
     if ls.ffn == "moe":
         o, aux = moe.moe_ffn(cfg, p["ffn"], h)
+    elif ls.ffn == "rwkv_cm":
+        if mode == "decode":
+            o, new_cache["xp_cm"] = rwkv.channel_mix_step(
+                cfg, p["ffn"], h, cache["xp_cm"])
+        else:
+            o = rwkv.channel_mix_full(cfg, p["ffn"], h)
+            if mode == "prefill":
+                new_cache["xp_cm"] = h[:, -1:].clone()
     else:
         o = (moe.swiglu if ls.ffn == "swiglu" else moe.gelu_mlp)(p["ffn"], h)
     return x + o, aux, new_cache
@@ -238,8 +291,8 @@ def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
           cache: list[Tree] | None = None, cache_len=None):
     """Everything before the output head: (final-normed hidden states
     (B, S, D), aux, new_cache). aux is the sum of the MoE layers' aux
-    losses (f32). new_cache is a list of per-layer caches ({k, v} or
-    {ckv, kr}) for prefill and decode, empty for train. Positions a caller
+    losses (f32). new_cache is a list of per-layer caches (see the module
+    docstring) for prefill and decode, empty for train. Positions a caller
     passes for train or prefill must rise along each row (checked once
     here). With `cfg.remat`, a train forward under autograd checkpoints
     each layer, its aux carried out beside its output."""

@@ -245,6 +245,7 @@ LM_NOT_PORTED = {
         "tree_pspecs": "§A9 (iv)", "tree_shapes": "§A9 (iv)",
         "apply_mrope": "§A9 (iii)"},
     "models.moe": {"ShardCtx": "§A9 (iv)"},
+    "models.rwkv": {}, "models.mamba": {},
     "models.attention": {"cross_spec": "§A9 (iii)",
                          "cross_full": "§A9 (iii)"},
     "models.transformer": {"encode": "§A9 (iii)"},

@@ -53,7 +53,7 @@ def test_scan_covers_the_package():
             "partition.py", "distributed.py", "scheduler.py", "base.py",
             "llama3_8b.py", "qwen2_7b.py", "qwen2_5_32b.py", "common.py",
             "moe.py", "attention.py", "transformer.py", "steps.py",
-            "convert.py", "flops.py"} <= names
+            "convert.py", "flops.py", "rwkv.py", "mamba.py"} <= names
     assert repro_torch.resolve_device is resolve_device
 
 

@@ -1,7 +1,7 @@
 """The port's own serving contracts, as the reference's
-`tests/test_consistency.py` states them for its models, on the dense GQA
-smoke configs of every ported family (dense GQA, MoE, MLA, MLA + MoE;
-CPU, f32 over bf16 weights):
+`tests/test_consistency.py` states them for its models, on the smoke
+configs of every ported family (dense GQA, MoE, MLA, MLA + MoE, RWKV6,
+Mamba / attention hybrid with MoE; CPU, f32 over bf16 weights):
 
 - decoding token by token from a zero cache reproduces the full-sequence
   causal forward, max|Δ| / max|logits| < 5e-3 (the reference's bound;
@@ -33,12 +33,12 @@ from repro_torch.kernels import flash_attn
 from repro_torch.models import convert, steps, transformer
 
 DENSE = ["llama3-8b", "qwen2-7b", "qwen2.5-32b", "olmoe-1b-7b",
-         "deepseek-v2-lite-16b", "minicpm3-4b"]
+         "deepseek-v2-lite-16b", "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b"]
 T = 12
 # the prompt seed of the greedy test: 10, or another where seed 10's
 # greedy steps hold a near-tie (olmoe's top two logits 3.4e-4 apart at
-# one step, both packages still picking the same tokens)
-GREEDY_SEED = {"olmoe-1b-7b": 11}
+# one step, both packages still picking the same tokens; jamba's 2.0e-4)
+GREEDY_SEED = {"olmoe-1b-7b": 11, "jamba-v0.1-52b": 11}
 
 
 def _model(cfg, seed, device="cpu"):
@@ -124,6 +124,8 @@ def test_greedy_decode_matches_reference(arch):
         big = rtransformer.init_cache(rcfg, params, b, s + n_new)
 
         def put(spec, z, c):           # the first s slots of the kv_seq axis
+            if "kv_seq" not in spec.axes:      # a recurrent state: whole
+                return c
             at = (slice(None),) * spec.axes.index("kv_seq") + (slice(0, s),)
             return z.at[at].set(c)
         return jax.tree.map(put, rtransformer.cache_spec(rcfg, b, s + n_new),
@@ -140,9 +142,13 @@ def test_greedy_decode_matches_reference(arch):
 
     def port_grow(cache):
         big = transformer.init_cache(cfg, model, b, s + n_new)
-        for layer, c in zip(big, cache):
+        for i, (layer, c) in enumerate(zip(big, cache)):
+            spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), b, s)
             for key in c:
-                layer[key][:, :s] = c[key]
+                if "kv_seq" in spec[key].axes:
+                    layer[key][:, :s] = c[key]
+                else:
+                    layer[key].copy_(c[key])
         return big
 
     pre, dec = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)

@@ -73,7 +73,8 @@ from repro_torch.models import convert, steps, transformer
 from repro_torch.optim import adamw
 
 GQA = ["llama3-8b", "qwen2-7b", "qwen2.5-32b"]
-DENSE = GQA + ["olmoe-1b-7b", "deepseek-v2-lite-16b", "minicpm3-4b"]
+DENSE = GQA + ["olmoe-1b-7b", "deepseek-v2-lite-16b", "minicpm3-4b",
+               "rwkv6-3b", "jamba-v0.1-52b"]
 UNPORTED = sorted(set(rconfigs.list_archs()) - set(DENSE))
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
