@@ -20,7 +20,10 @@ Phases, each printing one JSON line:
      random walk of n=262144, m=512 (the ecg-256k workload) with a planted
      motif pair, checked against an f64 exact profile of 64 sampled rows;
      the kernel's four launches at this size (one warm-up, three timed)
-     must give bitwise equal outputs (`bitwise_repeat`);
+     must give bitwise equal outputs (`bitwise_repeat`); the roofline
+     model's terms (`ops.kernel_roofline`, the rates of
+     `repro_torch.launch.roofline`) beside the bound, whose compute terms
+     must agree;
   5. the main path at full size, AB join: `ab_join(a, b, 128,
      return_b=True)` with |a| = 131072 (epilepsy-128k), |b| = 32768, with
      the same checks, and the NATSA kernel timed at 1, 2 and 4 warps per
@@ -28,7 +31,8 @@ Phases, each printing one JSON line:
   6. the flash-attention kernels against their plain version on the card:
      the reference's shape table and shapes off the kernels' 128-row tile
      in f32 (2e-4, the CUDA-core "fma" route), the same shapes plus a
-     non-causal one at D=128 and D=64 at S=4096 in bf16 (the tensor-core
+     non-causal one at D=128, D=64 at S=4096 and whisper-large-v3's
+     encoder shape (1, 20, 1500, 64, non-causal) in bf16 (the tensor-core
      "wgmma" route; 3e-2 and each element within one bf16 rounding), and
      block-size invariance (1e-5); each launch is counted on its route;
   7. the flash path at full width: `flash_attention` at llama3-8b's
@@ -196,7 +200,8 @@ Phases, each printing one JSON line:
      the logit bound itself), outside the decode bound;
  28. `main_lm_rwkv`: rwkv6-3b at its published width and depth (2.93 B
      parameters): prefill_32k at LM_RWKV_PREFILL_B requests (by time) and
-     decode_32k (128 requests of 3,072 + 64 greedy steps), the fields of
+     decode_32k (128 requests of LM_RWKV_DECODE_PROMPT + 64 greedy steps,
+     by time: the step's state does not grow with context), the fields of
      phases 20 and 21 plus `state_bytes` (the f32 WKV states and token
      shifts the batch carries), no kernel launch;
  29. `main_lm_jamba`: jamba-v0.1-52b at its published width cut to
@@ -205,13 +210,37 @@ Phases, each printing one JSON line:
      held against the plain version, the logits finite before the timed
      run) and decode_32k (64 flash launches on the prompts), the same
      fields;
- 30. `{"phase": "wall"}`: the script's wall seconds so far; then
+ 30. `lm_encdec_vs_plain`: whisper-large-v3 (2 encoder and 2 decoder
+     layers, with frames) and qwen2-vl-2b (2 layers, over (3, B, S)
+     M-RoPE positions) at full width: bf16 train-mode logits at 4096
+     tokens with the flash kernel against the plain attention within
+     2^-5 max|logits|, every flash call held per element (whisper's
+     encoder calls bidirectional over 1500 frames), qwen2-vl's GQA fault
+     outside; f32 prefill against train and decode against teacher
+     forcing at 1024 tokens within 5e-3; planted faults that must fail
+     that bound: whisper decoding with its last layer's cross K/V zeroed,
+     qwen2-vl with its M-RoPE sections permuted;
+ 31. `main_lm_whisper`: whisper-large-v3 at its published width and
+     depth (1.58 B parameters): prefill_32k at LM_WHISPER_PREFILL_B
+     requests with their frames (64 wgmma flash launches a call: the
+     encoder's 32 bidirectional, then the decoder's 32 causal; three held
+     against the plain version) and decode at 128 requests of
+     LM_WHISPER_PROMPT + 64 slots (by memory), the encoder's passes
+     inside the prompt chunks timed apart (`encode_s`, 128 requests'
+     frames in all); both bounds from `encdec_model_flops` and
+     `encdec_hbm_bytes_floor` (each term at the length it runs over);
+ 32. `main_lm_qwen2vl`: qwen2-vl-2b at its published width and depth
+     (1.54 B parameters) over video-like (3, B, S) positions: prefill_32k
+     at LM_QWEN_VL_PREFILL_B requests (28 wgmma flash launches) and
+     decode_32k, the fields of phases 20 and 21;
+ 33. `{"phase": "wall"}`: the script's wall seconds so far; then
      `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
      per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
      one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
-     olmoe-1b-7b, 2 for jamba at 16 layers, 0 for MLA and RWKV6), 2 per
+     olmoe-1b-7b, 2 for jamba at 16 layers, 28 for qwen2-vl-2b, 64 for
+     whisper-large-v3 with its encoder, 0 for MLA and RWKV6), 2 per
      layer per microbatch of a train step), its error against the plain
      version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
@@ -234,11 +263,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# the H100 SXM's rates, one definition: FP32 outside the tensor cores,
+# dense bf16 on them, HBM3 bytes/s
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_PEAK, HBM_BW as HBM_RATE, PEAK_FLOPS as BF16_PEAK,
+)
+
 SEED = 20240611
 TOL_KERNEL = 1e-4     # kernel vs plain version, correlation (the reference's own kernel standard)
 TOL_ORACLE = 1e-3     # full size vs f64 oracle: un-reseeded f32 drift measured ~1.6e-4 at n=262144
-FP32_PEAK = 67e12     # H100 SXM, FP32 outside the tensor cores (NVIDIA data sheet)
-HBM_RATE = 3.35e12    # H100 SXM HBM3 bytes/s
 SELF_N, SELF_M = 262144, 512           # ecg-256k (src/repro/configs/natsa.py:17)
 AB_NA, AB_NB, AB_M = 131072, 32768, 128  # epilepsy-128k (configs/natsa.py:16) vs 32768
 SAMPLED_ROWS = 64
@@ -250,7 +283,6 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attn.py:27"
 SOURCES = {"natsa_mp": KERNEL_SOURCE, "flash_attn": FLASH_SOURCE}
 
-BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 # llama3-8b (src/repro/configs/llama3_8b.py: 32 heads, 8 KV heads, head_dim
 # 128) at the prefill_32k shape (configs/base.py:162) with one sequence
 FLASH_B, FLASH_H, FLASH_KV_H, FLASH_S, FLASH_D = 1, 32, 8, 32768, 128
@@ -437,14 +469,19 @@ FLIP_SHARE_MAX = 0.1
 #   product (2.35 GB each), ~9.4 GB a request above the weights, beside
 #   ~5 GB of a Mamba layer's (S, 8192) activations: 2 requests peak near
 #   73 GB of the card's 85.0, 3 near 83 GB.
-# - decode_32k for both as llama3-8b's: 128 requests of 3,072 + 64 slots
-#   (rwkv's state 2.73 GB, jamba's 1.03 GB of state and 3.29 GB of K/V).
+# - decode_32k: jamba as llama3-8b's, 128 requests of 3,072 + 64 slots
+#   (1.03 GB of state and 3.29 GB of K/V); rwkv6-3b 128 requests of
+#   LM_RWKV_DECODE_PROMPT + 64 tokens, by time: its step reads and writes
+#   the same 2.73 GB of state at any context, and its 3,072-token prompts
+#   took 63.7 s of the script (a Python loop of 48 chunk steps a layer a
+#   prompt chunk), which whisper's and qwen2-vl's phases needed.
 # - lm_ssm_vs_plain: full width; rwkv6-3b 2 layers, jamba 5 layers (four
 #   Mamba layers, two of them MoE, and the first attention layer at index
 #   4); f32 at one request of 1024 tokens (dropless, as lm_moe_vs_plain),
 #   jamba also in bf16 at 4096 (the capacity regime).
 LM_RWKV_ARCH, LM_JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
 LM_RWKV_PREFILL_B, LM_JAMBA_PREFILL_B, LM_JAMBA_LAYERS = 4, 2, 16
+LM_RWKV_DECODE_PROMPT = 1024
 LM_SSM_LAYERS = {LM_RWKV_ARCH: 2, LM_JAMBA_ARCH: 5}
 LM_SSM_F32_S, LM_SSM_DECODE, LM_SSM_PLAIN_S = 1024, 64, 4096
 # chunk-size invariance, f32: max|d| <= 2e-3 max|logits|, the reference's
@@ -458,6 +495,39 @@ LM_SSM_CHUNKS = {"rwkv_chunk": 32, "mamba_chunk": 128}
 # parse on an H100 80GB HBM3 host at 700 W; the chunk steps, the
 # GEMMs and the elementwise passes all scale with S alike
 LM_TRACE_PREFIX = 2048
+
+# The encoder-decoder and M-RoPE families (ROADMAP.md §A9 (iii) items 3-4)
+# at their published widths and depths (src/repro_torch/configs/
+# whisper_large_v3.py, qwen2_vl_2b.py), bf16, weights drawn on the card
+# from a seed; the cuts, of memory or time, reckoned before the first
+# call (PERF.md):
+# - whisper-large-v3 (32 encoder + 32 decoder layers, d 1280, 20 heads of
+#   64 without GQA, d_ff 5120, vocab 51,866; 1.58 B parameters, 3.16 GB):
+#   its K/V take 163,840 bytes a token over the 32 layers, and each
+#   request's cross K/V 0.25 GB. prefill_32k cut from batch 32 to
+#   LM_WHISPER_PREFILL_B by time: a request of 32,768 tokens holds 5.37 GB
+#   of K/V (memory would allow ~12), and its cross attention runs in 64
+#   query chunks a layer in torch ops (f32 logits of (20, 512, 1500) a
+#   chunk, 3.93 GB a layer in all; ROADMAP.md §C (24)), ~1 s a request by
+#   its passes. decode_32k keeps its batch of 128 and cuts the context
+#   further than llama3-8b's, to LM_WHISPER_PROMPT + 64 slots, by memory:
+#   the cross K/V of 128 requests are 31.5 GB, the self K/V 33.6 GB at
+#   1,600 slots (65.8 GB at 3,136, 97 GB with the cross K/V, beyond the
+#   card); 68 GB with the weights.
+# - qwen2-vl-2b (28 layers, d 1536, 12 heads over 2 KV heads of 128,
+#   d_ff 8960, vocab 151,936, M-RoPE sections (16, 24, 24); 1.54 B
+#   parameters, 3.09 GB): prefill_32k cut to LM_QWEN_VL_PREFILL_B by
+#   time (0.94 GB of K/V a request, ~2 GB of SwiGLU and M-RoPE
+#   temporaries inside a layer: memory would allow ~20), ~0.6 s a request
+#   by llama3-8b's rates; decode_32k as llama3-8b's (11.5 GB of K/V).
+# - lm_encdec_vs_plain: full width, 2 layers (whisper's encoder 2 too);
+#   bf16 at 4096 tokens, f32 at 1024 with 64 decoded.
+LM_WHISPER_ARCH, LM_QWEN_VL_ARCH = "whisper-large-v3", "qwen2-vl-2b"
+LM_WHISPER_PREFILL_B, LM_QWEN_VL_PREFILL_B = 4, 8
+LM_WHISPER_PROMPT = 1536
+LM_ENCDEC_LAYERS, LM_ENCDEC_F32_S, LM_ENCDEC_DECODE = 2, 1024, 64
+LM_ENCDEC_PLAIN_S = 4096
+FRAMES_SCALE = 0.02       # the reference trainer's frames (launch/train.py:78)
 
 # The training path (ROADMAP.md §A9 (ii)): train_4k (configs/base.py:166)
 # at llama3-8b's published width, remat on, one AdamW step per call of
@@ -876,6 +946,24 @@ def _bound(args, kw, cells: float) -> dict:
             "bytes": nbytes, "flops": cells * FLOPS_PER_CELL}
 
 
+def _roofline_terms(l: int, excl: int, kt: dict) -> dict:
+    """`ops.kernel_roofline`'s terms for the self-join (the reference's
+    byte model at its tile geometry, over the card's rates) beside
+    `_bound`'s, whose compute terms must agree: the same cells and FLOPs
+    per cell at the same f32 peak."""
+    from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, ops
+
+    kr = ops.kernel_roofline(l, excl, DEFAULT_IT, DEFAULT_DT)
+    bound_ops_ms = 1e3 * kt["flops"] / FP32_PEAK
+    check(abs(1e3 * kr["t_compute_s"] - bound_ops_ms) <= 1e-9 * bound_ops_ms,
+          f"kernel_roofline's compute term {kr} against _bound's "
+          f"{bound_ops_ms} ms")
+    return {"kernel_roofline": kr, "bound_ops_ms": bound_ops_ms,
+            "bound_bytes_ms": 1e3 * kt["bytes"] / HBM_RATE,
+            "kernel_roofline_ms": 1e3 * max(kr["t_compute_s"],
+                                            kr["t_memory_s"])}
+
+
 def _time_kernel(args, kw, cells: float, ts_rows, ts_cols, m) -> dict:
     """Kernel ms (CUDA events, after a warm-up), plain ms (one run), the
     kernel-vs-plain comparison at the main path's shapes, and whether the
@@ -1001,8 +1089,9 @@ def phase_self() -> dict:
     l = n - m + 1
     cells = (l - excl) * (l - excl + 1) / 2
     kt = _time_kernel(args, kw, cells, ts, ts, m)
+    roof = _roofline_terms(l, excl, kt)
     out = {"phase": "main_self", "n": n, "m": m, "launches": launches,
-           "counts": counts,
+           "counts": counts, "roofline": roof,
            "motif": [pa, pb], "motif_corr": motif_corr,
            "oracle_rows": SAMPLED_ROWS, "oracle_max_corr_err": oracle_err,
            "host_prep_s": prep, "h2d_s": h2d, "e2e_s": e2e,
@@ -1137,7 +1226,10 @@ def phase_flash_cases() -> tuple[float, float, float]:
     worst_bf16 = worst_ratio = 0.0
     bf16_cases = [(1, 2, 128, 32, 64, 64, True)] + table + [
         (1, 4, 1024, 128, 128, 128, False),  # non-causal at full head width
-        (1, 4, 4096, 64, 128, 128, True)]    # D = 64 at S = 4096
+        (1, 4, 4096, 64, 128, 128, True),    # D = 64 at S = 4096
+        # whisper-large-v3's encoder: 20 heads of 64 over 1500 frames,
+        # bidirectional (1500 = 11 · 128 + 92, a masked partial tile)
+        (1, 20, 1500, 64, 4, 4, False)]
     for b, h, s, d, bq, bk, causal in bf16_cases:
         q, k, v = _flash_inputs(rng, (b, h, s, d), torch.bfloat16)
         out = _on_route("wgmma", lambda: flash_attn.flash_attention(
@@ -2913,19 +3005,18 @@ def _lm_setup() -> dict:
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
 
 
-class _FlashTimer:
-    """Wraps `flash_attn.flash_attention` in CUDA events while active: the
-    kernel's time inside a model run, launch by launch."""
+class _CallTimer:
+    """Wraps `mod.<name>` in CUDA events while active: its time inside a
+    model run, call by call (the flash kernel launch by launch; whisper's
+    encoder pass by pass)."""
 
-    def __init__(self):
-        from repro_torch.kernels import flash_attn
-
-        self.mod, self.real, self.events = flash_attn, None, []
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.real, self.events = mod, name, None, []
 
     def __enter__(self):
         import torch
 
-        self.real = self.mod.flash_attention
+        self.real = getattr(self.mod, self.name)
 
         def timed(*a, **kw):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2935,11 +3026,11 @@ class _FlashTimer:
             self.events.append(ev)
             return out
 
-        self.mod.flash_attention = timed
+        setattr(self.mod, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod.flash_attention = self.real
+        setattr(self.mod, self.name, self.real)
 
     def ms(self) -> list[float]:
         return [a.elapsed_time(b) for a, b in self.events]
@@ -3073,42 +3164,86 @@ def _logits_vs(got, want, tol: float) -> dict:
             "ok": err <= tol * scale and not bool((differ & ~near).any())}
 
 
-def _is_state(sp) -> bool:
-    """A cache leaf without a sequence axis: RWKV6's state and token
-    shifts, Mamba's SSM state and conv window."""
-    return "kv_seq" not in sp.axes
+def _leaf_kind(sp) -> str:
+    """A cache leaf's kind: "seq" (a sequence axis: {k, v}, {ckv, kr}),
+    "cross" (whisper's cross K/V over the encoder's frames) or "state"
+    (RWKV6's state and token shifts, Mamba's SSM state and conv window)."""
+    if "kv_seq" in sp.axes:
+        return "seq"
+    return "cross" if "kv_heads" in sp.axes else "state"
 
 
 def _copy_cache(cfg, cache, pre, rows: slice, n: int) -> None:
     """Copy a prefill cache `pre` (n slots) into rows `rows` of the decode
-    cache `cache`: slots 0..n-1 of a leaf with a sequence axis ({k, v},
-    {ckv, kr}), a recurrent state leaf whole."""
+    cache `cache`: slots 0..n-1 of a leaf with a sequence axis, a state or
+    cross K/V leaf whole."""
     from repro_torch.models import transformer
 
     for i, (layer, pc) in enumerate(zip(cache, pre)):
         spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), 1, n)
         for key, t in pc.items():
-            if _is_state(spec[key]):
-                layer[key][rows] = t
-            else:
+            if _leaf_kind(spec[key]) == "seq":
                 layer[key][rows, :n] = t
+            else:
+                layer[key][rows] = t
 
 
-def _cache_bytes(cfg, b: int, s: int, states: bool | None = None) -> int:
+def _cache_bytes(cfg, b: int, s: int, kind: str | None = None) -> int:
     """Bytes of the decode cache of b requests and s slots, in each leaf's
-    dtype (the states are f32); only the state leaves, or only the
-    others, with `states` True or False."""
+    dtype (the states are f32); only the leaves of one `_leaf_kind` with
+    `kind`."""
     from repro_torch.models import transformer
 
     return sum(int(np.prod(sp.shape)) * sp.dtype.itemsize
                for layer in transformer.cache_spec(cfg, b, s)
                for sp in layer.values()
-               if states is None or _is_state(sp) == states)
+               if kind is None or _leaf_kind(sp) == kind)
 
 
-def _lm_decode_run(cfg, model, tokens, n_prefill: int, before_step=None):
-    """Prefill tokens[:, :n_prefill] through the prefill step, copy the
-    cache into one of tokens.shape[1] slots (the prefill cache has exactly
+def _mrope_positions(b: int, s: int, text_tail: int = 0):
+    """(3, b, s) M-RoPE positions on the card, as a video's patches give
+    them, frames of 16 x 16 patches: w rises strictly (0..s-1), t is the
+    frame (w // 256) and h the row ((w // 16) % 16) of each position; the
+    last `text_tail` positions are text, t = h = w (the positions decode
+    gives a new token)."""
+    import torch
+
+    w = torch.arange(s, dtype=torch.int32, device=DEVICE)
+    t, h = w // 256, (w // 16) % 16
+    if text_tail:
+        t[s - text_tail:] = w[s - text_tail:]
+        h[s - text_tail:] = w[s - text_tail:]
+    return torch.stack([t, h, w])[:, None].expand(3, b, s).contiguous()
+
+
+def _lm_extras(cfg, b: int, s: int, rng, text_tail: int = 0) -> dict:
+    """What a model takes beside its tokens, on the card: whisper's frames
+    (b, 1500, d), standard normal at FRAMES_SCALE (the reference trainer's
+    scale) drawn in f32 with numpy from `rng`, then cast to the model's
+    dtype; M-RoPE's (3, b, s) positions (`_mrope_positions`)."""
+    import torch
+
+    out = {}
+    if cfg.is_encdec:
+        frames = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model),
+                                     dtype=np.float32) * FRAMES_SCALE
+        out["frames"] = torch.from_numpy(frames).to(DEVICE, cfg.dtype)
+    if cfg.mrope_sections:
+        out["positions"] = _mrope_positions(b, s, text_tail)
+    return out
+
+
+def _rows(extras: dict, rows: slice, cols: slice = slice(None)) -> dict:
+    """The extras of requests `rows` (and of positions `cols`)."""
+    return {k: v[:, rows, cols] if k == "positions" else v[rows]
+            for k, v in extras.items()}
+
+
+def _lm_decode_run(cfg, model, tokens, n_prefill: int, before_step=None,
+                   extras=None):
+    """Prefill tokens[:, :n_prefill] (with `extras`' frames and the
+    positions of those tokens) through the prefill step, copy the cache
+    into one of tokens.shape[1] slots (the prefill cache has exactly
     n_prefill), then decode the rest teacher-forced, calling
     `before_step(cache)` before each step where given (a planted fault).
     Returns the decode logits (B, T, V) for positions n_prefill..S-1."""
@@ -3117,8 +3252,9 @@ def _lm_decode_run(cfg, model, tokens, n_prefill: int, before_step=None):
     from repro_torch.models import steps, transformer
 
     b, s = tokens.shape
+    head = _rows(extras or {}, slice(None), slice(0, n_prefill))
     _, pre = steps.make_prefill_step(cfg)(
-        model, {"tokens": tokens[:, :n_prefill]})
+        model, {"tokens": tokens[:, :n_prefill], **head})
     cache = transformer.init_cache(cfg, model, b, s)
     _copy_cache(cfg, cache, pre, slice(None), n_prefill)
     del pre
@@ -3134,16 +3270,24 @@ def _lm_decode_run(cfg, model, tokens, n_prefill: int, before_step=None):
 
 
 def _attn_layers(cfg) -> int:
-    """Layers whose attention runs the flash kernel (GQA; MLA runs none)."""
+    """Decoder layers whose attention runs the flash kernel (GQA; MLA runs
+    none)."""
     return sum(cfg.layer_kind(i).mixer == "attn" for i in range(cfg.n_layers))
+
+
+def _flash_calls(cfg) -> int:
+    """Flash calls of one prefill or train-mode forward: whisper's encoder
+    layers first (bidirectional), then the decoder's GQA layers."""
+    return cfg.encoder_layers + _attn_layers(cfg)
 
 
 def _check_layers(cfg) -> tuple[int, ...]:
     """The flash calls of a prefill that `_FlashCheck` holds: the first,
-    middle and last GQA layer's (flash call i is the i-th GQA layer's: all
-    of llama3-8b's and olmoe-1b-7b's layers, jamba's at in-period index 4);
-    none for MLA and RWKV6."""
-    n = _attn_layers(cfg)
+    middle and last (call i is the i-th GQA layer's: all of llama3-8b's,
+    olmoe-1b-7b's and qwen2-vl-2b's layers, jamba's at in-period index 4;
+    whisper's 32 encoder layers, then its 32 decoder layers, so its middle
+    call is decoder layer 0); none for MLA and RWKV6."""
+    n = _flash_calls(cfg)
     return tuple(sorted({0, n // 2, n - 1})) if n else ()
 
 
@@ -3164,6 +3308,21 @@ def _cache_ok(cfg, cache, b: int, s: int) -> bool:
             cfg, cfg.layer_kind(i), b, s).items())
 
 
+def _lm_work(cfg, shape) -> tuple[dict, float]:
+    """(model FLOPs, HBM byte floor on one card) of a step: the
+    reference's `model_flops` and `hbm_bytes_floor`, or for an
+    encoder-decoder the port's `encdec_model_flops` and
+    `encdec_hbm_bytes_floor`, which count the encoder's and the cross
+    K/V's work over the frames, cross attention, and in decode only the
+    weights a step reads and the cross K/V it reads."""
+    from repro_torch.utils import flops
+
+    if cfg.is_encdec:
+        return (flops.encdec_model_flops(cfg, shape),
+                flops.encdec_hbm_bytes_floor(cfg, shape))
+    return flops.model_flops(cfg, shape), flops.hbm_bytes_floor(cfg, shape, 1)
+
+
 def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
                      batch: int = LM_PREFILL_B,
                      seed: int = SEED + 41) -> dict:
@@ -3176,36 +3335,41 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
     its logits finite (the reference's init rule gives jamba's Mamba
     inputs a scale near 45); then a run counted and timed (the kernel
     wrapped in CUDA events, the peak memory read from it), and one traced;
-    beside the bound from `model_flops` and the bytes of the recurrent
-    state the batch carries out (`state_bytes`, which `hbm_bytes_floor`
-    does not count). The logits and the cache are finite, and the traced
+    beside the bound from `model_flops` (whisper's from
+    `encdec_model_flops`, each term at the length it runs over) and the
+    bytes of the recurrent state the batch carries out (`state_bytes`,
+    which `hbm_bytes_floor` does not count). The logits and the cache are finite, and the traced
     run's logits equal the timed run's bit for bit (no atomics on the
     path: flash, cuBLAS, the MoE dispatch and combine, the chunked
-    scans)."""
+    scans). whisper's requests carry frames (its encoder's 32 flash
+    launches precede the decoder's 32), qwen2-vl's M-RoPE positions."""
     import torch
 
     from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import flash_attn
     from repro_torch.models import steps
     from repro_torch.utils import flops
 
     b, s = batch, LM_PREFILL_S
-    n_attn = _attn_layers(cfg)
-    state_bytes = _cache_bytes(cfg, b, s, states=True)
-    tokens = _lm_tokens(np.random.default_rng(seed), cfg, b, s)
+    n_attn = _flash_calls(cfg)
+    state_bytes = _cache_bytes(cfg, b, s, kind="state")
+    rng = np.random.default_rng(seed)
+    tokens = _lm_tokens(rng, cfg, b, s)
+    full_batch = {"tokens": tokens, **_lm_extras(cfg, b, s, rng)}
     step = steps.make_prefill_step(cfg)
     lg1 = None
     with _FlashCheck(_check_layers(cfg)) as chk:
         if n_attn or state_bytes:
-            lg1 = step(model, {"tokens": tokens})[0]
+            lg1 = step(model, full_batch)[0]
             torch.cuda.synchronize()
             check(_finite(lg1), f"{cfg.name} prefill logits not finite")
     check(chk.ok(), f"in-model flash vs plain: {chk.results}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with _FlashTimer() as timer:
+    with _CallTimer(flash_attn, "flash_attention") as timer:
         t0 = time.perf_counter()
-        lg2, cache = step(model, {"tokens": tokens})
+        lg2, cache = step(model, full_batch)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
     counts = read_counts()
@@ -3225,7 +3389,7 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
         # profiler takes minutes to parse): trace a prefix of each request
         # beside its own unprofiled wall time; its first run repeats
         repeat = torch.equal(lg1, lg2)
-        head = {"tokens": tokens[:, :LM_TRACE_PREFIX]}
+        head = {"tokens": tokens[:, :LM_TRACE_PREFIX]}     # no M-RoPE here
         t0 = time.perf_counter()
         step(model, head)
         torch.cuda.synchronize()
@@ -3235,7 +3399,7 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
     else:
         again = []
         trace = _device_time(
-            lambda: again.append(step(model, {"tokens": tokens})[0]), 1)
+            lambda: again.append(step(model, full_batch)[0]), 1)
         repeat, trace_wall_s = torch.equal(again[0], lg2), warm_s
     del lg1
     check(repeat, "the prefill did not repeat bit for bit")
@@ -3245,9 +3409,9 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
     flash_ms = timer.ms()
     check(len(flash_ms) == n_attn, "the timed prefill's flash calls")
     shape = ShapeSpec(f"prefill_32k_b{b}", s, b, "prefill")
-    mf = flops.model_flops(cfg, shape)
+    mf, floor_bytes = _lm_work(cfg, shape)
     t_ops = mf["total"] / BF16_PEAK
-    t_bytes = flops.hbm_bytes_floor(cfg, shape, 1) / HBM_RATE
+    t_bytes = floor_bytes / HBM_RATE
     bound_s = max(t_ops, t_bytes)
     out = {"phase": phase, "cell": "prefill_32k",
            "card": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
@@ -3266,6 +3430,7 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "share_of_bound": bound_s / warm_s,
            "flash_ms_in_model": sum(flash_ms),
+           "flash_ms_encoder": sum(flash_ms[:cfg.encoder_layers]),
            "flash_ms_per_layer": ([min(flash_ms), float(np.median(flash_ms)),
                                    max(flash_ms)] if flash_ms else None),
            "flash_share": sum(flash_ms) / (1e3 * warm_s),
@@ -3275,51 +3440,67 @@ def phase_lm_prefill(model, cfg, *, phase: str = "main_lm_prefill",
 
 
 def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
-                    seed: int = SEED + 42) -> dict:
-    """LM_DECODE_B requests of LM_DECODE_PROMPT tokens, prefilled
-    LM_DECODE_CHUNK at a time (one flash launch per GQA layer each) into
-    one decode cache of prompt + LM_DECODE_STEPS slots, then
-    LM_DECODE_STEPS greedy steps (`greedy_next`) over the whole batch,
-    each timed to its synchronize, beside the per-step bound from
-    `hbm_bytes_floor` and the recurrent state's bytes (`state_bytes`: each
-    step reads and writes them; the floor does not count them). A prompt
-    chunk's cache goes into the decode cache by `_copy_cache`. Before the
-    timed run, one chunk's prefill holds the kernel at three layers
-    against the plain version on the model's own q/k/v (GQA)."""
+                    seed: int = SEED + 42,
+                    prompt: int = LM_DECODE_PROMPT) -> dict:
+    """LM_DECODE_B requests of `prompt` tokens, prefilled LM_DECODE_CHUNK
+    at a time (one flash launch per GQA layer each) into one decode cache
+    of prompt + LM_DECODE_STEPS slots, then LM_DECODE_STEPS greedy steps
+    (`greedy_next`) over the whole batch, each timed to its synchronize,
+    beside the per-step bound from `hbm_bytes_floor` and the recurrent
+    state's bytes (`state_bytes`: each step reads and writes them; the
+    floor does not count them). A prompt chunk's cache goes into the
+    decode cache by `_copy_cache`. Before the timed run, one chunk's
+    prefill holds the kernel at three layers against the plain version on
+    the model's own q/k/v (GQA). whisper's prompt chunks carry their
+    requests' frames: each chunk's prefill encodes them (timed by CUDA
+    events, `encode_s` over all the chunks) and its cross K/V go into the
+    decode cache with the self K/V; each step reads those cross K/V
+    (`cross_bytes`), which its floor (`encdec_hbm_bytes_floor`) counts
+    beside the decoder's weights alone."""
     import torch
 
     from repro_torch.configs import ShapeSpec
     from repro_torch.models import steps, transformer
-    from repro_torch.utils import flops
 
-    b, p, n, c = LM_DECODE_B, LM_DECODE_PROMPT, LM_DECODE_STEPS, LM_DECODE_CHUNK
-    tokens = _lm_tokens(np.random.default_rng(seed), cfg, b, p)
+    b, p, n, c = LM_DECODE_B, prompt, LM_DECODE_STEPS, LM_DECODE_CHUNK
+    rng = np.random.default_rng(seed)
+    tokens = _lm_tokens(rng, cfg, b, p)
+    extras = _lm_extras(cfg, b, p, rng)
     prefill = steps.make_prefill_step(cfg)
     with _FlashCheck(_check_layers(cfg)) as chk:
         if chk.calls:
-            _, pre = prefill(model, {"tokens": tokens[:c]})
+            _, first = prefill(model, {"tokens": tokens[:c],
+                                       **_rows(extras, slice(0, c))})
             torch.cuda.synchronize()
-            del pre
     check(chk.ok(), f"in-model flash vs plain (decode prompts): "
                     f"{chk.results}")
     torch.cuda.synchronize()
     free_bytes, total_bytes = torch.cuda.mem_get_info()
     cache_bytes = _cache_bytes(cfg, b, p + n)
-    state_bytes = _cache_bytes(cfg, b, p + n, states=True)
+    state_bytes = _cache_bytes(cfg, b, p + n, kind="state")
+    cross_bytes = _cache_bytes(cfg, b, p + n, kind="cross")
+    if chk.calls:
+        del first
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     cache = transformer.init_cache(cfg, model, b, p + n)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     last = []
-    for r0 in range(0, b, c):
-        lg, pre = prefill(model, {"tokens": tokens[r0:r0 + c]})
-        _copy_cache(cfg, cache, pre, slice(r0, r0 + c), p)
-        last.append(lg)
-        del pre
-    torch.cuda.synchronize()
+    with _CallTimer(transformer, "encode") as enc:
+        for r0 in range(0, b, c):
+            lg, pre = prefill(model, {"tokens": tokens[r0:r0 + c],
+                                      **_rows(extras, slice(r0, r0 + c))})
+            _copy_cache(cfg, cache, pre, slice(r0, r0 + c), p)
+            last.append(lg)
+            del pre
+        torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    encode_s = 1e-3 * sum(enc.ms()) if cfg.is_encdec else None
+    check(len(enc.ms()) == (b // c if cfg.is_encdec else 0),
+          "an encoder pass per prompt chunk")
     prefill_counts = read_counts()
-    want = _attn_layers(cfg) * (b // c)
+    want = _flash_calls(cfg) * (b // c)
     check(prefill_counts["flash_attn_routes"] == {"wgmma": want, "fma": 0}
           and prefill_counts["natsa_mp"] == 0,
           f"chunked prefill launches {prefill_counts}, want {want} wgmma")
@@ -3351,9 +3532,9 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
           and _finite(lg), "decoded tokens / logits")
     shape = ShapeSpec(f"decode_{p + n}_b{b}", p + n, b, "decode")
-    floor_bytes = flops.hbm_bytes_floor(cfg, shape, 1)
+    mf, floor_bytes = _lm_work(cfg, shape)
     t_bytes = floor_bytes / HBM_RATE
-    t_ops = flops.model_flops(cfg, shape)["total"] / BF16_PEAK
+    t_ops = mf["total"] / BF16_PEAK
     bound_ms = 1e3 * max(t_bytes, t_ops)
     med = float(np.median(step_ms))
     if trace["device_ms_per_call"] is not None:
@@ -3363,6 +3544,7 @@ def phase_lm_decode(model, cfg, *, phase: str = "main_lm_decode",
            "arch": cfg.name, "batch": b, "prompt": p, "steps": n,
            "cache_slots": p + n, "prefill_chunk": c, **_lm_setup(),
            "cache_bytes": cache_bytes, "free_bytes_before": free_bytes,
+           "encode_s": encode_s, "cross_bytes": cross_bytes,
            "total_bytes": total_bytes,
            "in_model_vs_plain": chk.results,
            "prefill_s": prefill_s, "prefill_tokens_per_s": b * p / prefill_s,
@@ -3460,10 +3642,11 @@ def phase_lm_vs_plain() -> dict:
 
 
 def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
-                prefill_b: int, seed: int, layers: int | None = None) -> dict:
+                prefill_b: int, seed: int, layers: int | None = None,
+                prompt: int = LM_DECODE_PROMPT) -> dict:
     """One model at its published width and depth (or `layers` deep),
-    built once on the card from `seed` for its prefill and decode phases,
-    then freed."""
+    built once on the card from `seed` for its prefill and decode phases
+    (decode over prompts of `prompt` tokens), then freed."""
     import torch
 
     from repro_torch import configs
@@ -3480,7 +3663,8 @@ def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
     pre = phase_lm_prefill(model, cfg, phase=prefill_phase, batch=prefill_b,
                            seed=seed + 1)
     torch.cuda.empty_cache()
-    dec = phase_lm_decode(model, cfg, phase=decode_phase, seed=seed + 2)
+    dec = phase_lm_decode(model, cfg, phase=decode_phase, seed=seed + 2,
+                          prompt=prompt)
     del model
     torch.cuda.empty_cache()
     emit({"phase": "lm_model", "arch": cfg.name, "layers": cfg.n_layers,
@@ -3822,7 +4006,7 @@ def _ssm_f32(arch: str, seed: int, model=None) -> dict:
     want = full[:, s - t:, :v]
     out = {"arch": arch, "layers": cfg.n_layers, "seq_len": s,
            "decode_steps": t, "counts": counts,
-           "state_bytes": _cache_bytes(cfg, 1, s, states=True),
+           "state_bytes": _cache_bytes(cfg, 1, s, kind="state"),
            "prefill_vs_train": _routed_vs(pre[..., :v], full[..., :v],
                                           flips(rp, s), TOL_LM_DECODE),
            "decode_vs_teacher": _routed_vs(dec[..., :v], want,
@@ -3920,6 +4104,154 @@ def phase_lm_ssm_vs_plain() -> dict:
         del model
     out["counts"] = {"jamba_bf16": out["jamba_bf16"]["counts"],
                      **{f"{r['arch']}_f32": r["counts"] for r in out["f32"]}}
+    emit(out)
+    return out
+
+
+def _zero_cross(layer: int):
+    """A planted fault for `_lm_decode_run`: before each step, the cross
+    K/V (`ck`, `cv`) of decoder layer `layer` set to 0, so its cross
+    sublayer adds nothing (softmax weights times zero values, and `wo`
+    has no bias)."""
+    def fault(cache):
+        cache[layer]["ck"].zero_()
+        cache[layer]["cv"].zero_()
+    return fault
+
+
+def _encdec_f32(cfg, model, seed: int) -> dict:
+    """One of whisper-large-v3 and qwen2-vl-2b at full width,
+    LM_ENCDEC_LAYERS layers (whisper's encoder too), f32 compute over its
+    bf16 weights, one request of LM_ENCDEC_F32_S tokens (whisper with its
+    frames; qwen2-vl over `_mrope_positions` whose last LM_ENCDEC_DECODE
+    positions are text, t = h = w, as decode rotates a new token):
+    prefill against train and decode against teacher forcing (the last
+    LM_ENCDEC_DECODE tokens after a prefill of the rest) within
+    TOL_LM_DECODE. A planted fault must fail that logit bound itself:
+    whisper decoding with the last decoder layer's cross K/V zeroed before
+    each step; qwen2-vl's train logits with its M-RoPE sections permuted
+    (t, h, w's bands (16, 24, 24) read as (24, 24, 16))."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    s, t, v = LM_ENCDEC_F32_S, LM_ENCDEC_DECODE, cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    tokens = _lm_tokens(rng, cfg, 1, s)
+    ex = _lm_extras(cfg, 1, s, rng, text_tail=t)
+    reset_counts()
+    full, _, _ = transformer.forward(cfg, model, tokens, mode="train", **ex)
+    pre, _, _ = transformer.forward(cfg, model, tokens, mode="prefill", **ex)
+    dec = _lm_decode_run(cfg, model, tokens, s - t, extras=ex)
+    counts = read_counts()
+    check(counts["flash_attn_routes"] == {"wgmma": 0,
+                                          "fma": 3 * _flash_calls(cfg)}
+          and counts["natsa_mp"] == 0, f"{cfg.name} f32 launches {counts}")
+    want = full[:, s - t:, :v]
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "seq_len": s,
+           "decode_steps": t, "counts": counts,
+           "prefill_vs_train": _logits_vs(pre[..., :v], full[..., :v],
+                                          TOL_LM_DECODE),
+           "decode_vs_teacher": _logits_vs(dec[..., :v], want,
+                                           TOL_LM_DECODE)}
+    if cfg.is_encdec:
+        last = cfg.n_layers - 1
+        fault = _lm_decode_run(cfg, model, tokens, s - t, extras=ex,
+                               before_step=_zero_cross(last))
+        out["planted_fault"] = {
+            "fault": f"decode with the cross K/V of layer {last} zeroed "
+                     "before each step",
+            **_logits_vs(fault[..., :v], want, TOL_LM_DECODE)}
+    else:
+        sec = cfg.mrope_sections
+        bad = dataclasses.replace(cfg, mrope_sections=(*sec[1:], sec[0]))
+        fault, _, _ = transformer.forward(bad, model, tokens, mode="train",
+                                          **ex)
+        out["planted_fault"] = {
+            "fault": f"M-RoPE sections {bad.mrope_sections} for {sec}",
+            **_logits_vs(fault[..., :v], full[..., :v], TOL_LM_DECODE)}
+    check(not out["planted_fault"]["ok"],
+          f"the logit bound passes a planted fault: {out['planted_fault']}")
+    for key in ("prefill_vs_train", "decode_vs_teacher"):
+        check(out[key]["ok"], f"lm_encdec_vs_plain {cfg.name} {key}: "
+                              f"{out[key]}")
+    return out
+
+
+def _encdec_bf16(cfg, model, seed: int) -> dict:
+    """The same model in bf16 over one request of LM_ENCDEC_PLAIN_S
+    tokens: the train-mode logits with the flash kernel (wgmma: whisper's
+    encoder bidirectional over 1500 frames at head dim 64, its decoder
+    causal; qwen2-vl causal at 12 query heads over 2 KV heads) against the
+    same model with the kernel call swapped for its plain version, within
+    TOL_LM_BF16, every flash call held per element on the model's own
+    q/k/v. qwen2-vl's GQA head-mapping fault (`_PlainFlash` with K/V heads
+    tiled) must exceed the bound; whisper has as many K/V heads as query
+    heads, so no such fault exists for it."""
+    from repro_torch.models import transformer
+
+    s, v = LM_ENCDEC_PLAIN_S, cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    tokens = _lm_tokens(rng, cfg, 1, s)
+    ex = _lm_extras(cfg, 1, s, rng)
+    n = _flash_calls(cfg)
+    reset_counts()
+    with _FlashCheck(range(n)) as chk:
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train",
+                                         **ex)
+    counts = read_counts()
+    check(counts["flash_attn_routes"] == {"wgmma": n, "fma": 0}
+          and counts["natsa_mp"] == 0,
+          f"lm_encdec_vs_plain {cfg.name} kernel launches {counts}")
+    check(chk.ok(), f"in-model flash vs plain: {chk.results}")
+    with _PlainFlash():
+        plain, _, _ = transformer.forward(cfg, model, tokens, mode="train",
+                                          **ex)
+    check(read_counts() == counts, "the plain run launched a kernel")
+    out = {"arch": cfg.name, "seq_len": s, "counts": counts,
+           "in_model_vs_plain": chk.results,
+           "train_vs_plain": _logits_vs(full[..., :v], plain[..., :v],
+                                        TOL_LM_BF16)}
+    if cfg.n_kv_heads != cfg.n_heads:
+        with _PlainFlash(kv_heads=cfg.n_kv_heads):
+            fault, _, _ = transformer.forward(cfg, model, tokens,
+                                              mode="train", **ex)
+        out["planted_fault"] = {"fault": "K/V heads tiled, not interleaved "
+                                         "(query head j reads KV head "
+                                         "j % n_kv_heads)",
+                                **_logits_vs(fault[..., :v], plain[..., :v],
+                                             TOL_LM_BF16)}
+        check(not out["planted_fault"]["ok"],
+              f"the bound passes a planted fault: {out['planted_fault']}")
+    check(out["train_vs_plain"]["ok"],
+          f"lm_encdec_vs_plain {cfg.name} bf16: {out['train_vs_plain']}")
+    return out
+
+
+def phase_lm_encdec_vs_plain() -> dict:
+    """whisper-large-v3 and qwen2-vl-2b at full width, LM_ENCDEC_LAYERS
+    layers (whisper's encoder too), weights drawn on the card from the
+    seed: `_encdec_bf16`, then `_encdec_f32` on the same weights."""
+    import torch
+
+    from repro_torch import configs
+
+    out = {"phase": "lm_encdec_vs_plain",
+           "card": torch.cuda.get_device_name(0), **_lm_setup()}
+    with torch.no_grad():
+        for arch, seed in ((LM_WHISPER_ARCH, SEED + 110),
+                           (LM_QWEN_VL_ARCH, SEED + 114)):
+            cfg = dataclasses.replace(
+                configs.get_config(arch), n_layers=LM_ENCDEC_LAYERS,
+                encoder_layers=LM_ENCDEC_LAYERS if arch == LM_WHISPER_ARCH
+                else 0)
+            model = _lm_model(cfg, seed)
+            out[arch] = {"bf16": _encdec_bf16(cfg, model, seed + 1),
+                         "f32": _encdec_f32(cfg, model, seed + 2)}
+            del model
+            torch.cuda.empty_cache()
     emit(out)
     return out
 
@@ -4212,6 +4544,7 @@ def phase_lm_train() -> dict:
 
     from repro_torch import configs
     from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import flash_attn
     from repro_torch.models import steps
     from repro_torch.optim import adamw
     from repro_torch.utils import flops
@@ -4257,7 +4590,8 @@ def phase_lm_train() -> dict:
           f"in-model flash gradients vs plain: {grads}")
     step_s, flash_ms, bwd_ms = [], [], []
     for i in range(LM_TRAIN_STEPS):
-        with _FlashTimer() as ft, _BackwardTimer() as bt:
+        with _CallTimer(flash_attn, "flash_attention") as ft, \
+                _BackwardTimer() as bt:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, _, met = step(model, state, batches[1 + i])
@@ -4446,10 +4780,19 @@ def main() -> None:
     ssm_plain = phase_lm_ssm_vs_plain()
     torch.cuda.empty_cache()
     lm_rwkv = _lm_serving(LM_RWKV_ARCH, "main_lm_rwkv", "main_lm_rwkv",
-                          LM_RWKV_PREFILL_B, SEED + 90)
+                          LM_RWKV_PREFILL_B, SEED + 90,
+                          prompt=LM_RWKV_DECODE_PROMPT)
     lm_jamba = _lm_serving(LM_JAMBA_ARCH, "main_lm_jamba", "main_lm_jamba",
                            LM_JAMBA_PREFILL_B, SEED + 100,
                            layers=LM_JAMBA_LAYERS)
+    encdec_plain = phase_lm_encdec_vs_plain()
+    torch.cuda.empty_cache()
+    lm_whisper = _lm_serving(LM_WHISPER_ARCH, "main_lm_whisper",
+                             "main_lm_whisper", LM_WHISPER_PREFILL_B,
+                             SEED + 130, prompt=LM_WHISPER_PROMPT)
+    lm_qwen_vl = _lm_serving(LM_QWEN_VL_ARCH, "main_lm_qwen2vl",
+                             "main_lm_qwen2vl", LM_QWEN_VL_PREFILL_B,
+                             SEED + 140)
     phase_lm_train_vs_plain()
     tr = phase_lm_train()
     cli = phase_lm_train_cli()
@@ -4479,6 +4822,10 @@ def main() -> None:
                  "lm_rwkv_decode": lm_rwkv["decode"],
                  "lm_jamba_prefill": lm_jamba["prefill"],
                  "lm_jamba_decode": lm_jamba["decode"],
+                 "lm_whisper_prefill": lm_whisper["prefill"],
+                 "lm_whisper_decode": lm_whisper["decode"],
+                 "lm_qwen2vl_prefill": lm_qwen_vl["prefill"],
+                 "lm_qwen2vl_decode": lm_qwen_vl["decode"],
                  "lm_train": tr, "lm_train_cli": cli}
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -4515,7 +4862,8 @@ def main() -> None:
         "replaces": FLASH_REPLACES,
         "launches": (fl["launches"]
                      + sum(m[ph]["counts"]["flash_attn"]
-                           for m in (lm, lm_moe, lm_mla, lm_rwkv, lm_jamba)
+                           for m in (lm, lm_moe, lm_mla, lm_rwkv, lm_jamba,
+                                     lm_whisper, lm_qwen_vl)
                            for ph in ("prefill", "decode"))
                      + tr["counts"]["flash_attn"]
                      + cli["counts"]["flash_attn"]),
@@ -4542,10 +4890,23 @@ def main() -> None:
         "lm_jamba_prefill": {f: lm_jamba["prefill"][f] for f in (
             "batch", "layers", "flash_launches", "flash_ms_in_model",
             "flash_ms_per_layer", "flash_share", "prefill_s", "bound_s")},
+        "lm_whisper_prefill": {f: lm_whisper["prefill"][f] for f in (
+            "batch", "flash_launches", "flash_ms_in_model",
+            "flash_ms_encoder", "flash_ms_per_layer", "flash_share",
+            "prefill_s", "bound_s")},
+        "lm_whisper_decode": {f: lm_whisper["decode"][f] for f in (
+            "encode_s", "counts", "launches_by_route")},
+        "lm_qwen2vl_prefill": {f: lm_qwen_vl["prefill"][f] for f in (
+            "batch", "flash_launches", "flash_ms_in_model",
+            "flash_ms_per_layer", "flash_share", "prefill_s", "bound_s")},
         "lm_in_model_max_element_ratio": max(
-            r["element_ratio"] for m in (lm, lm_moe, lm_jamba)
+            r["element_ratio"]
+            for m in (lm, lm_moe, lm_jamba, lm_whisper, lm_qwen_vl)
             for ph in ("prefill", "decode")
             for r in m[ph]["in_model_vs_plain"]),
+        "lm_encdec_vs_plain_max_element_ratio": max(
+            r["element_ratio"] for arch in (LM_WHISPER_ARCH, LM_QWEN_VL_ARCH)
+            for r in encdec_plain[arch]["bf16"]["in_model_vs_plain"]),
         "lm_moe_vs_plain_max_element_ratio": max(
             r["element_ratio"] for r in moe_plain["in_model_vs_plain"]),
         "lm_ssm_vs_plain_max_element_ratio": max(

@@ -6,11 +6,7 @@ Each architecture file instantiates `ModelConfig` as the reference's does;
 `dtype` is a `torch.dtype`. `input_specs()` returns `(shape, dtype)` pairs
 and allocates nothing.
 
-The GQA, MLA, MoE, RWKV6 and Mamba families (an `attn`, `mla`, `rwkv` or
-`mamba` mixer and a `swiglu`, `gelu`, `moe` or `rwkv_cm` FFN in every
-layer, no M-RoPE, no encoder) build a model in this package; the other
-families (whisper, qwen2-vl) are data here and raise `NotImplementedError`
-naming ROADMAP.md §A9 (iii) when a model is built (`models.transformer`).
+Every family builds a model in this package (`models.transformer`).
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ Pipeline (the paper's Fig. 1 dataflow):
 A span may be a whole sweep or one chunk of the anytime scheduler's
 rounds (`rowmax_chunk`, `ab_rowmax_chunk`: signed diagonals [k0, k1)); an
 empty chunk launches nothing.
+
+The sweep's roofline (`hbm_bytes_per_cell`, `kernel_roofline`) keeps the
+reference's byte formulas and divides by the H100's rates
+(`launch.roofline`); `kernel_vmem_bytes`, the TPU VMEM model, has no
+counterpart (ROADMAP.md §C (23)).
 """
 
 from __future__ import annotations
@@ -217,3 +222,77 @@ def natsa_ab_join(ts_a, ts_b, window: int, *, exclusion: int | None = None,
 # per evaluated cell: 2 mul + 1 add (delta) + the carry add + 2 mul (corr)
 # + the row max and the column max/select (the reference's count)
 FLOPS_PER_CELL = 9.0
+
+
+def sweep_cells(l: int, excl: int) -> int:
+    """Admissible cells of a self-join of `l` rows, each visited once:
+    sum(l - k for k in range(excl, l)), the reference's count."""
+    n = max(l - excl, 0)
+    return n * (n + 1) // 2
+
+
+def _resident_bytes(l: int, it: int, dt: int, stream_bytes: int) -> int:
+    """The sweep's streams and accumulators: df/dg/invn plus the row and
+    column corr/idx words, over the padded length."""
+    return (l + it + dt) * (3 * int(stream_bytes) + 16)
+
+
+def hbm_bytes_per_cell(l: int, excl: int, it: int = DEFAULT_IT,
+                       dt: int = DEFAULT_DT, *,
+                       stream_bytes: int = 4) -> float:
+    """Modelled HBM traffic per distance-matrix cell, the reference's two
+    formulas (`repro/kernels/ops.py:265-302`) at its tile geometry
+    (`it` rows by `dt` diagonals):
+      * resident: every stream element crosses HBM once, plus the seeds,
+        the row outputs and the column accumulators read and written once;
+      * streamed: the j-side strips and the column window are re-fetched
+        once per (row tile, diagonal tile), so bytes/cell ~ c·(it+dt)/(it·dt).
+    The regime is the card's: "resident" when `_resident_bytes` (the
+    streams and accumulators) fit in the H100's L2 (`L2_BYTES`), where
+    the reference asks whether its kernel's VMEM working set fits a TPU
+    core's budget (ROADMAP.md §C (23)). `stream_bytes` is the width of the
+    df/dg/invn streams; seeds, outputs and accumulators stay 4-byte."""
+    from repro_torch.launch.roofline import L2_BYTES
+
+    n_rows = -(-l // it)
+    n_diags = -(-(l - excl) // dt)
+    cells = float(sweep_cells(l, excl))
+    f32 = 4
+    sb = int(stream_bytes)
+    if _resident_bytes(l, it, dt, sb) <= L2_BYTES:
+        total = (3 * (l + it + dt) * sb                 # streams, once
+                 + n_diags * dt * f32                   # seeds
+                 + n_rows * it * (f32 + 4) * 2          # row outputs rw
+                 + (l + it + dt) * (f32 + 4) * 2)       # col accumulators rw
+        return total / max(cells, 1.0)
+    i_side = n_rows * it * 3 * sb                       # once per row tile
+    j_side = n_rows * n_diags * (it + dt) * 3 * sb      # per (row, diag) tile
+    outs = n_rows * n_diags * it * (f32 + 4) * 2        # rw of row corr+idx
+    cols = n_rows * n_diags * (it + dt) * (f32 + 4) * 2  # rw of col window
+    seeds = n_diags * dt * f32
+    total = i_side + j_side + outs + cols + seeds       # single fused pass
+    return total / max(cells, 1.0)
+
+
+def kernel_roofline(l: int, excl: int, it: int, dt: int, *,
+                    stream_bytes: int = 4) -> dict:
+    """Compute and memory seconds of the whole self-join profile at (l, it,
+    dt) on one card: the cells' FLOPs at the H100's f32 rate (`FP32_PEAK`;
+    the sweep is f32 arithmetic on CUDA cores) and their modelled bytes
+    (`hbm_bytes_per_cell`) at its HBM rate. The reference's keys, with
+    `l2_bytes` (the bytes the regime rule weighs against `L2_BYTES`) in
+    place of `vmem_bytes`."""
+    from repro_torch.launch.roofline import FP32_PEAK, HBM_BW, L2_BYTES
+
+    cells = float(sweep_cells(l, excl))
+    bpc = hbm_bytes_per_cell(l, excl, it, dt, stream_bytes=stream_bytes)
+    l2 = _resident_bytes(l, it, dt, stream_bytes)
+    return {
+        "cells": cells,
+        "bytes_per_cell": bpc,
+        "stream_bytes": int(stream_bytes),
+        "t_compute_s": cells * FLOPS_PER_CELL / FP32_PEAK,
+        "t_memory_s": cells * bpc / HBM_BW,
+        "l2_bytes": l2,
+        "resident": l2 <= L2_BYTES,
+    }

@@ -9,12 +9,13 @@ Runs on the CUDA card unless `--device cpu` is given. Restart resumes
 from the newest intact checkpoint automatically. Checkpoints are written
 in the reference's tree layout (`models.convert.params_to_reference`:
 params and both AdamW moments stacked as `cfg.layer_groups()` says), so a
-run resumes across packages, in either direction. The GQA, MoE, MLA,
-RWKV6 and Mamba families train here (llama3-8b, qwen2-7b, qwen2.5-32b,
-olmoe-1b-7b, deepseek-v2-lite-16b, minicpm3-4b, rwkv6-3b,
-jamba-v0.1-52b; the loss adds `steps.AUX_WEIGHT` times the MoE layers'
-aux); whisper-large-v3 and qwen2-vl-2b raise `NotImplementedError` naming
-ROADMAP.md §A9 (iii), as model construction does.
+run resumes across packages, in either direction. Every family of
+`repro_torch.configs` trains here (the loss adds `steps.AUX_WEIGHT` times
+the MoE layers' aux). As the reference's trainer does, an M-RoPE model
+(qwen2-vl-2b) gets 0..seq-1 in all three position streams, and an
+encoder-decoder (whisper-large-v3) one fixed batch of frames,
+`default_rng(0).normal(size=(batch, encoder_seq, d_model)) * 0.02`, drawn
+in f64 by numpy and rounded to f32, then to the model's dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -101,10 +103,22 @@ def main(argv=None):
                                device=dev)
         for name in ("loss", "grad_norm", "step_time")}
 
+    extra = {}
+    if cfg.mrope_sections:
+        extra["positions"] = torch.arange(
+            args.seq, dtype=torch.int32, device=dev).expand(
+                3, args.batch, args.seq)
+    if cfg.is_encdec:
+        frames = np.random.default_rng(0).normal(
+            size=(args.batch, cfg.encoder_seq, cfg.d_model)) * 0.02
+        extra["frames"] = torch.from_numpy(frames.astype(np.float32)).to(
+            dev, cfg.dtype)
+
     t_prev = time.time()
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in stream.batch(step).items()}
+        batch.update(extra)
         model, opt_state, metrics = step_fn(model, opt_state, batch)
         final_loss = float(metrics["loss"])
 

@@ -1,6 +1,6 @@
-"""Grouped-query attention (optional QKV bias) and multi-head latent
-attention (MLA) — port of `repro.models.attention` (cross-attention is
-ROADMAP.md §A9 (iii)).
+"""Grouped-query attention (optional QKV bias), multi-head latent
+attention (MLA) and whisper's cross attention — port of
+`repro.models.attention`.
 
 Three execution modes share weights:
   * full    — training (causal), or bidirectional
@@ -31,6 +31,13 @@ rows at a time, so the live logits are (B, H, q_chunk, S), and each chunk
 reads only the keys up to its last row: the keys past it are masked
 (weight exactly 0) where positions rise along each row, which
 `transformer.trunk` checks (ROADMAP.md §C (21)).
+
+Cross attention (`cross_spec`, `cross_full`) keeps the reference's
+uniform biases (`wq`, `wv`; no `wk` bias) and computes the grouped einsum
+over the encoder's K/V in torch ops on every device, as the reference
+does outside any Pallas kernel (Sq ≠ Sk, no mask), in `cfg.q_chunk` query
+chunks (§C (24)). Decode reads the cross K/V from the cache and never
+writes it.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 
 from repro_torch.kernels import flash_attn
 from repro_torch.models.common import (
-    ParamSpec, Tree, apply_rope, dense, dense_spec, promote,
+    ParamSpec, Tree, apply_mrope, apply_rope, dense, dense_spec, promote,
 )
 
 NEG_INF = -1e30
@@ -62,12 +69,16 @@ def _split_heads(x, n, hd):
 
 
 def _qkv(cfg, p: Tree, x, positions):
-    """q (B,S,H,Dh), k and v (B,S,KV,Dh), with RoPE on q and k."""
+    """q (B,S,H,Dh), k and v (B,S,KV,Dh), with RoPE on q and k (M-RoPE
+    over (3, B, S) positions where the config has `mrope_sections`)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(dense(x, p["wq"]), h, hd)
     k = _split_heads(dense(x, p["wk"]), kv, hd)
     v = _split_heads(dense(x, p["wv"]), kv, hd)
-    if cfg.use_rope:
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    elif cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -257,3 +268,42 @@ def mla_decode(cfg, p: Tree, x, cache: Tree, cache_len, positions):
     o = _mla_attend(cfg, p, qa, qr, ckv.float(), kr.float(), ckv,
                     valid.expand(b, 1, s))
     return dense(o.reshape(b, 1, -1), p["wo"]), {"ckv": ckv, "kr": kr}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+
+
+def cross_spec(cfg) -> Tree:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "wq": dense_spec(d, h * hd, ("embed", "heads"), bias=True),
+        "wk": dense_spec(d, h * hd, ("embed", "heads")),
+        "wv": dense_spec(d, h * hd, ("embed", "heads"), bias=True),
+        "wo": dense_spec(h * hd, d, ("heads", "embed")),
+    }
+
+
+def cross_kv(cfg, p: Tree, enc_out):
+    """The encoder output's cross K and V, (B, Sk, H, Dh) each."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    return (_split_heads(dense(enc_out, p["wk"]), h, hd),
+            _split_heads(dense(enc_out, p["wv"]), h, hd))
+
+
+def cross_attend(cfg, p: Tree, x, k, v):
+    """x (B, Sq, D) attends over the cross K/V (B, Sk, H, Dh), no mask and
+    no RoPE, in `cfg.q_chunk` query rows at a time: each row's softmax is
+    its own, so the values are those of one pass, and the live f32 logits
+    are (B, H, q_chunk, Sk) (ROADMAP.md §C (24))."""
+    b, sq, _ = x.shape
+    q = _split_heads(dense(x, p["wq"]), cfg.n_heads, cfg.head_dim)
+    parts = [_grouped_attn(q[:, c0:c0 + cfg.q_chunk], k, v, None)
+             for c0 in range(0, sq, cfg.q_chunk)]
+    o = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    return dense(o.reshape(b, sq, -1), p["wo"])
+
+
+def cross_full(cfg, p: Tree, x, enc_out):
+    """x: (B, Sq, D) attends over enc_out (B, Sk, D) (no mask, no rope)."""
+    return cross_attend(cfg, p, x, *cross_kv(cfg, p, enc_out))

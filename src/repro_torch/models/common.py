@@ -7,7 +7,7 @@ logical axes, init rule, dtype); `init_params` draws it from a
 tree as an `nn.Module` whose `nn.Parameter`s carry the tree's keys, so
 `p["wq"]["w"]` reads as in the reference. The logical axes are kept for
 the sharding rules, which come with a mesh (ROADMAP.md §A9 (iv)); no rule
-table is ported yet. M-RoPE is §A9 (iii).
+table is ported yet.
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ def make_norm(kind: str, d: int):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (standard + M-RoPE)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -182,17 +182,50 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
-def apply_rope(x, positions, theta: float = 1e4):
-    """x: (..., S, H, Dh), positions: (..., S) int. Split-half convention;
-    the rotation in f32, cast back to x's dtype."""
+def _rotate(x, ang):
+    """x (..., S, H, Dh) rotated by angles (..., S, Dh/2), split-half
+    convention, in f32, cast back to x's dtype."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # (half,)
-    ang = positions[..., None].float() * freqs                 # (..., S, half)
     cos = torch.cos(ang)[..., None, :]                         # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin,
                       xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, Dh), positions: (..., S) int. Split-half convention;
+    the rotation in f32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # (half,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _mrope_angles(positions3, sections, head_dim: int, theta: float):
+    """M-RoPE's rotation angles (..., S, half) in f32: each frequency band
+    of `sections` (half-dim units) takes its angle from one of the three
+    position streams (t, h, w), picked by a gather, which equals the
+    reference's one-hot einsum bit for bit (x·1 + 0 + 0 = x in f32)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"half the head dim, {half}")
+    dev = positions3.device
+    freqs = rope_freqs(head_dim, theta, device=dev)               # (half,)
+    band = torch.cat([torch.full((n,), i, dtype=torch.long, device=dev)
+                      for i, n in enumerate(sections)])
+    ang_all = positions3[..., None].float() * freqs           # (3, ..., S, half)
+    idx = band.expand(1, *ang_all.shape[1:])
+    return ang_all.gather(0, idx)[0]
+
+
+def apply_mrope(x, positions3, sections: tuple[int, ...],
+                theta: float = 1e4):
+    """Qwen2-VL M-RoPE. x: (..., S, H, Dh); positions3: (3, ..., S) for the
+    (t, h, w) streams; the frequency bands are split across the streams by
+    `sections` (half-dim units, e.g. (16, 24, 24) for head_dim 128).
+    Split-half rotation in f32, cast back to x's dtype."""
+    return _rotate(x, _mrope_angles(positions3, sections, x.shape[-1],
+                                    theta))
 
 
 # ---------------------------------------------------------------------------

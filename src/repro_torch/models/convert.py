@@ -6,7 +6,10 @@ The reference keeps decoder layers stacked: parameters under
 decoder layer: parameters as `layers.<i>.<...>` in a `Transformer`'s
 state dict, caches as a list of per-layer dicts. Decoder layer `i` is
 prefix `i` for `i < P`, else period position `j` of period `p`, where
-`i = P + p * len(period) + j`.
+`i = P + p * len(period) + j`. whisper's encoder layers are stacked under
+`enc.blk` in the reference and are `enc.layers.<i>` here; `enc.ln_f` and
+`pos_emb` carry across as they are, and a layer's cross K/V (`ck`, `cv`)
+sits in its cache beside the self K/V in both layouts.
 
 Into the port, leaves may be numpy arrays (the reference's) or tensors
 (a checkpoint's); out of it, they are host tensors. `_to_numpy` carries
@@ -22,9 +25,9 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_nest
-from repro_torch.models.transformer import UNPORTED
 
-_TOP = ("emb", "ln_f")
+_TOP = ("emb", "ln_f", "pos_emb")
+_STACKS = ("prefix", "period", "enc")
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -55,10 +58,9 @@ def _layer_trees(tree) -> list:
     layers = [prefix[str(i)] for i in range(len(prefix))]
     period = tree.get("period", {})
     if period:
-        n = next(iter(tree_leaves(period)))[1].shape[0]
-        for p in range(n):
-            layers.extend(tree_map(lambda a: a[p], period[str(j)])
-                          for j in range(len(period)))
+        per = [_unstack(period[str(j)]) for j in range(len(period))]
+        for p in range(len(per[0])):
+            layers.extend(per[j][p] for j in range(len(period)))
     return layers
 
 
@@ -89,32 +91,46 @@ def _nest(flat: dict, prefix: str) -> dict:
                       if k.startswith(prefix)})
 
 
+def _unstack(tree) -> list:
+    """Leaves with a leading layer dim -> one subtree per layer."""
+    n = next(iter(tree_leaves(tree)))[1].shape[0]
+    return [tree_map(lambda a: a[i], tree) for i in range(n)]
+
+
 def params_from_reference(tree) -> dict[str, torch.Tensor]:
     """The reference's parameter tree (numpy leaves) -> a `Transformer`
     state dict."""
-    extra = set(tree) - {*_TOP, "prefix", "period"}
+    extra = set(tree) - {*_TOP, *_STACKS}
     if extra:
-        raise NotImplementedError(f"parameters {sorted(extra)} belong to a "
-                                  f"family not ported yet ({UNPORTED})")
-    out = {path: _to_torch(a)
-           for path, a in tree_leaves({k: tree[k] for k in _TOP})}
-    for i, lt in enumerate(_layer_trees(tree)):
-        out.update((path, _to_torch(a))
-                   for path, a in tree_leaves(lt, f"layers.{i}."))
+        raise ValueError(f"parameters {sorted(extra)} have no place in the "
+                         "port's model")
+    out = {path: _to_torch(a) for path, a in tree_leaves(
+        {k: tree[k] for k in _TOP if k in tree})}
+    layers = [(f"layers.{i}.", lt) for i, lt in enumerate(_layer_trees(tree))]
+    if "enc" in tree:
+        layers += [(f"enc.layers.{i}.", lt)
+                   for i, lt in enumerate(_unstack(tree["enc"]["blk"]))]
+        layers.append(("enc.ln_f.", tree["enc"]["ln_f"]))
+    for prefix, lt in layers:
+        out.update((path, _to_torch(a)) for path, a in tree_leaves(lt, prefix))
     return out
 
 
 def params_to_reference(state, cfg) -> dict:
     """A `Transformer` (or its state dict, or any dict keyed by its
     parameter paths) -> the reference's parameter tree of host tensors,
-    stacked as `cfg.layer_groups()` says."""
+    stacked as `cfg.layer_groups()` says (the encoder under `enc.blk`)."""
     if isinstance(state, nn.Module):
         state = state.state_dict()
     flat = {k: v.detach().cpu() for k, v in state.items()}
     top = _nest(flat, "")
-    tree = {k: top[k] for k in _TOP}
+    tree = {k: top[k] for k in _TOP if k in top}
     tree.update(_stack_layers([_nest(flat, f"layers.{i}.")
                                for i in range(cfg.n_layers)], cfg))
+    if cfg.is_encdec:
+        tree["enc"] = {"blk": _stack([_nest(flat, f"enc.layers.{i}.")
+                                      for i in range(cfg.encoder_layers)]),
+                       "ln_f": top["enc"]["ln_f"]}
     return tree
 
 
@@ -134,13 +150,15 @@ def decayed_paths(state, cfg) -> set[str]:
     """The parameter paths AdamW decays: those whose leaf has rank >= 2 in
     the reference's layout, where a decoder layer stacked under `period`
     carries the leading `n_periods` dim and one under `prefix` does not
-    (`cfg.layer_groups()`)."""
+    (`cfg.layer_groups()`), and every encoder layer (`enc.blk`) carries
+    the leading `encoder_layers` dim."""
     if isinstance(state, nn.Module):
         state = dict(state.named_parameters())
     first = len(cfg.layer_groups()[0])
 
     def rank(path, t):
         head, _, rest = path.partition(".")
-        stacked = head == "layers" and int(rest.split(".")[0]) >= first
+        stacked = ((head == "layers" and int(rest.split(".")[0]) >= first)
+                   or (head == "enc" and rest.startswith("layers.")))
         return t.dim() + stacked
     return {k for k, t in state.items() if rank(k, t) >= 2}

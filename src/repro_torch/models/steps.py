@@ -45,7 +45,7 @@ def make_loss_fn(cfg: ModelConfig):
     def loss_fn(params, batch):
         logits, aux, _ = transformer.forward(
             cfg, params, batch["tokens"], mode="train",
-            positions=batch.get("positions"))
+            positions=batch.get("positions"), frames=batch.get("frames"))
         ce = cross_entropy(mask_padded_vocab(cfg, logits), batch["labels"])
         return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
     return loss_fn
@@ -61,13 +61,17 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig, *,
     `microbatches > 1` splits the batch as the reference's `split_mb`
     ((B, ...) -> (mb, B/mb, ...)), runs one backward per microbatch and
     sums its gradients into f32 buffers, then divides by `mb`; loss and
-    metrics are the microbatches' means. Parameters and `opt_state` are
+    metrics are the microbatches' means. M-RoPE's (3, B, S) `positions`
+    split on their batch axis (the reference's `steps.py:95`); whisper's
+    `frames` (B, ...) as the tokens. Parameters and `opt_state` are
     updated in place and returned."""
     loss_fn = make_loss_fn(cfg)
     mb = microbatches
 
     def split_mb(batch):
-        parts = {k: x.reshape(mb, -1, *x.shape[1:]).unbind(0)
+        parts = {k: (x.reshape(3, mb, -1, *x.shape[2:]).unbind(1)
+                     if k == "positions" and cfg.mrope_sections
+                     else x.reshape(mb, -1, *x.shape[1:]).unbind(0))
                  for k, x in batch.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(mb)]
 
@@ -108,15 +112,18 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, batch{tokens (B, S)}) -> (last-position logits (B, 1, V),
-    cache: a list of per-layer caches, `transformer.layer_cache_spec`'s,
-    with S slots where a leaf has a sequence axis)."""
+    """(params, batch{tokens (B, S)[, positions][, frames]}) ->
+    (last-position logits (B, 1, V), cache: a list of per-layer caches,
+    `transformer.layer_cache_spec`'s, with S slots where a leaf has a
+    sequence axis; an encoder-decoder's encodes its `frames` and returns
+    each layer's cross K/V)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
         x, _, cache = transformer.trunk(cfg, params, batch["tokens"],
                                         mode="prefill",
-                                        positions=batch.get("positions"))
+                                        positions=batch.get("positions"),
+                                        frames=batch.get("frames"))
         lg = transformer.head(cfg, params, x[:, -1:])
         return mask_padded_vocab(cfg, lg), cache
 

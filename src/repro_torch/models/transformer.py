@@ -1,5 +1,5 @@
-"""LM assembly — port of `repro.models.transformer` for the dense GQA,
-MLA, MoE, RWKV6 and Mamba / attention hybrid families.
+"""LM assembly — port of `repro.models.transformer` for every family of
+`repro.configs`.
 
 The reference scans stacked "period" parameters; here the stack is a loop
 over per-layer modules (`Transformer.layers`, one `ParamTree` each),
@@ -11,22 +11,26 @@ attention (`attn`), multi-head latent attention (`mla`), RWKV6 time mixing
 a routed MoE (`moe`) or RWKV6 channel mixing (`rwkv_cm`): llama3-8b,
 qwen2-7b, qwen2.5-32b, olmoe-1b-7b, deepseek-v2-lite-16b (its dense first
 layer included), minicpm3-4b, rwkv6-3b and jamba-v0.1-52b (Mamba layers,
-GQA without RoPE at in-period index 4, MoE on odd layers). The
-encoder-decoder with cross-attention and M-RoPE raise
-`NotImplementedError` naming ROADMAP.md §A9 (iii).
+GQA without RoPE at in-period index 4, MoE on odd layers). qwen2-vl-2b
+rotates q and k by M-RoPE over (3, B, S) positions (t, h, w).
+whisper-large-v3 is an encoder-decoder: `encode` runs bidirectional GQA
+layers over precomputed frames, and each decoder layer adds a cross
+sublayer (`ln_x`, `cross`) over the encoder's output, with learned
+decoder positions (`pos_emb`).
 
 Modes: train (no cache), prefill (returns the cache), decode (one token;
 writes the cache in place, see `attention.gqa_decode`,
 `attention.mla_decode`, `rwkv.time_mix_step` and `mamba.mamba_step`). A
 layer's cache is {k, v} (GQA), {ckv, kr} (MLA), {state, xp_tm, xp_cm}
 (RWKV6: the f32 WKV state and the token shifts of both mixers) or {ssm,
-conv} (Mamba: the f32 SSM state and the conv window). The output head is
-tied: `x @ emb.T`. Each MoE
-layer returns its load-balancing aux loss; `trunk` sums them. With
-`cfg.remat`, a train-mode forward under autograd recomputes each layer in
-the backward (`torch.utils.checkpoint`, non-reentrant): only the layer's
-input is kept, as the reference's `jax.checkpoint(..., nothing_saveable)`
-per layer does, and the layer's aux comes out beside its output.
+conv} (Mamba: the f32 SSM state and the conv window), plus {ck, cv} with
+cross attention (the encoder's K/V, which decode reads and never writes).
+The output head is tied: `x @ emb.T`. Each MoE layer returns its
+load-balancing aux loss; `trunk` sums them. With `cfg.remat`, a
+train-mode forward under autograd recomputes each layer in the backward
+(`torch.utils.checkpoint`, non-reentrant): only the layer's input is
+kept, as the reference's `jax.checkpoint(..., nothing_saveable)` per
+layer does, and the layer's aux comes out beside its output.
 """
 
 from __future__ import annotations
@@ -38,74 +42,71 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention, mamba, moe, rwkv
 from repro_torch.models.common import (
-    ParamSpec, ParamTree, Tree, empty_params, init_params, make_norm,
-    tree_map,
+    ParamSpec, ParamTree, Tree, dense, empty_params, init_params, make_norm,
 )
 from repro_torch.utils.device import resolve_device
-
-UNPORTED = "ROADMAP.md §A9 (iii)"
-
-
-MIXERS = ("attn", "mla", "rwkv", "mamba")
-FFNS = ("swiglu", "gelu", "moe", "rwkv_cm")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of `cfg` has a ported
-    mixer and FFN, with no M-RoPE and no encoder."""
-    parts = set()
-    if cfg.mrope_sections:
-        parts.add("M-RoPE")
-    if cfg.is_encdec or cfg.learned_pos:
-        parts.add("an encoder-decoder with cross-attention")
-    for i in range(cfg.n_layers):
-        ls = cfg.layer_kind(i)
-        if ls.mixer not in MIXERS:
-            parts.add(f"the {ls.mixer} mixer")
-        if ls.ffn not in FFNS:
-            parts.add(f"the {ls.ffn} FFN")
-    if parts:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(parts))} is not ported yet "
-            f"({UNPORTED}); this package builds the GQA, MLA, MoE, RWKV6 "
-            "and Mamba families only")
-
 
 # ---------------------------------------------------------------------------
 # param specs
 
 
+def _enc_layer(cfg: ModelConfig) -> LayerSpec:
+    """The encoder's layer: bidirectional GQA and a GELU MLP."""
+    return LayerSpec("attn_bidir", "gelu", cfg.d_ff)
+
+
 def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> Tree:
-    if ls.mixer not in MIXERS or ls.ffn not in FFNS or ls.cross:
-        raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
+    """One layer's tree: `ln1`, `mixer`, with cross attention `ln_x` and
+    `cross`, then `ln2`, `ffn`."""
     d = cfg.d_model
     norm_spec, _ = make_norm(cfg.norm_type, d)
-    mixer = {"attn": attention.gqa_spec, "mla": attention.mla_spec,
-             "rwkv": rwkv.time_mix_spec,
-             "mamba": mamba.mamba_spec}[ls.mixer](cfg)
+    mixers = {"attn": attention.gqa_spec, "attn_bidir": attention.gqa_spec,
+              "mla": attention.mla_spec, "rwkv": rwkv.time_mix_spec,
+              "mamba": mamba.mamba_spec}
+    if ls.mixer not in mixers:
+        raise ValueError(ls.mixer)
+    s: Tree = {"ln1": norm_spec, "mixer": mixers[ls.mixer](cfg)}
+    if ls.cross:
+        s["ln_x"] = norm_spec
+        s["cross"] = attention.cross_spec(cfg)
     if ls.ffn == "moe":
         ffn = moe.moe_spec(cfg)
     elif ls.ffn == "swiglu":
         ffn = moe.swiglu_spec(d, ls.d_ff)
     elif ls.ffn == "rwkv_cm":
         ffn = rwkv.channel_mix_spec(cfg)
-    else:
+    elif ls.ffn == "gelu":
         ffn = moe.gelu_mlp_spec(d, ls.d_ff)
-    return {"ln1": norm_spec, "mixer": mixer, "ln2": norm_spec, "ffn": ffn}
+    else:
+        raise ValueError(ls.ffn)
+    s["ln2"] = norm_spec
+    s["ffn"] = ffn
+    return s
 
 
 def model_spec(cfg: ModelConfig) -> Tree:
-    """The port's parameter tree: `emb`, `ln_f`, then `layers.<i>` per
-    decoder layer (the reference stacks these under `period`)."""
-    check_supported(cfg)
+    """The port's parameter tree: `emb`, `ln_f`, `layers.<i>` per decoder
+    layer (the reference stacks these under `period`), then whisper's
+    learned decoder positions `pos_emb` and its encoder `enc` (`layers.<i>`,
+    stacked under `enc.blk` in the reference, and `ln_f`)."""
     norm_spec, _ = make_norm(cfg.norm_type, cfg.d_model)
-    return {
+    spec: Tree = {
         "emb": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
                          init="normal", scale=0.02),
         "ln_f": norm_spec,
         "layers": {str(i): layer_param_spec(cfg, cfg.layer_kind(i))
                    for i in range(cfg.n_layers)},
     }
+    if cfg.learned_pos:
+        spec["pos_emb"] = ParamSpec((cfg.max_position, cfg.d_model),
+                                    ("null", "embed"), init="normal",
+                                    scale=0.02)
+    if cfg.is_encdec:
+        spec["enc"] = {
+            "layers": {str(i): layer_param_spec(cfg, _enc_layer(cfg))
+                       for i in range(cfg.encoder_layers)},
+            "ln_f": norm_spec}
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -118,30 +119,37 @@ def layer_cache_spec(cfg: ModelConfig, ls: LayerSpec, b: int, s: int) -> Tree:
         h, k = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         shift = ParamSpec((b, 1, d), ("batch", "null", "embed"),
                           dtype=cfg.dtype)
-        return {"state": ParamSpec((b, h, k, k),
-                                   ("batch", "heads", "head_dim", "null"),
-                                   dtype=torch.float32),
-                "xp_tm": shift, "xp_cm": shift}
-    if ls.mixer == "mamba":
+        out = {"state": ParamSpec((b, h, k, k),
+                                  ("batch", "heads", "head_dim", "null"),
+                                  dtype=torch.float32),
+               "xp_tm": shift, "xp_cm": shift}
+    elif ls.mixer == "mamba":
         di = cfg.mamba_expand * d
-        return {"ssm": ParamSpec((b, di, cfg.mamba_d_state),
-                                 ("batch", "mlp", "state"),
-                                 dtype=torch.float32),
-                "conv": ParamSpec((b, cfg.mamba_conv - 1, di),
-                                  ("batch", "null", "mlp"), dtype=cfg.dtype)}
-    if ls.mixer == "mla":
-        return {"ckv": ParamSpec((b, s, cfg.kv_lora_rank),
-                                 ("batch", "kv_seq", "kv_lora"),
-                                 dtype=cfg.dtype),
-                "kr": ParamSpec((b, s, cfg.qk_rope_dim),
-                                ("batch", "kv_seq", "head_dim"),
-                                dtype=cfg.dtype)}
-    if ls.mixer != "attn":
-        raise NotImplementedError(f"{ls} is not ported yet ({UNPORTED})")
-    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
-    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
-    return {"k": ParamSpec(shape, axes, dtype=cfg.dtype),
-            "v": ParamSpec(shape, axes, dtype=cfg.dtype)}
+        out = {"ssm": ParamSpec((b, di, cfg.mamba_d_state),
+                                ("batch", "mlp", "state"),
+                                dtype=torch.float32),
+               "conv": ParamSpec((b, cfg.mamba_conv - 1, di),
+                                 ("batch", "null", "mlp"), dtype=cfg.dtype)}
+    elif ls.mixer == "mla":
+        out = {"ckv": ParamSpec((b, s, cfg.kv_lora_rank),
+                                ("batch", "kv_seq", "kv_lora"),
+                                dtype=cfg.dtype),
+               "kr": ParamSpec((b, s, cfg.qk_rope_dim),
+                               ("batch", "kv_seq", "head_dim"),
+                               dtype=cfg.dtype)}
+    elif ls.mixer == "attn":
+        shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+        out = {"k": ParamSpec(shape, axes, dtype=cfg.dtype),
+               "v": ParamSpec(shape, axes, dtype=cfg.dtype)}
+    else:
+        raise ValueError(ls.mixer)
+    if ls.cross:
+        shape = (b, cfg.encoder_seq, cfg.n_heads, cfg.head_dim)
+        axes = ("batch", "null", "kv_heads", "head_dim")
+        out["ck"] = ParamSpec(shape, axes, dtype=cfg.dtype)
+        out["cv"] = ParamSpec(shape, axes, dtype=cfg.dtype)
+    return out
 
 
 def cache_spec(cfg: ModelConfig, b: int, s: int) -> list[Tree]:
@@ -150,12 +158,30 @@ def cache_spec(cfg: ModelConfig, b: int, s: int) -> list[Tree]:
             for i in range(cfg.n_layers)]
 
 
-def init_cache(cfg: ModelConfig, params, b: int, s: int) -> list[Tree]:
-    """Zero-initialized decode cache on the parameters' device."""
+def init_cache(cfg: ModelConfig, params, b: int, s: int, *,
+               frames=None) -> list[Tree]:
+    """Zero-initialized decode cache on the parameters' device. For an
+    encoder-decoder model given `frames` (B, encoder_seq, D), the encoder
+    runs once here and each layer's cross K/V (`ck`, `cv`) is written
+    into the cache (the serving flow); it runs before the self K/V are
+    allocated, so its activations and the full cache never coexist."""
     dev = params["emb"].device
-    return [tree_map(lambda ps: torch.zeros(ps.shape, dtype=ps.dtype,
-                                            device=dev), ls)
-            for ls in cache_spec(cfg, b, s)]
+    cross = {}
+    if cfg.is_encdec and frames is not None:
+        if frames.shape[0] != b:
+            raise ValueError(f"frames hold {frames.shape[0]} requests, the "
+                             f"cache {b}")
+        with torch.no_grad():
+            enc_out = encode(cfg, params, frames)
+            for i, layer in enumerate(params["layers"]):
+                if cfg.layer_kind(i).cross:
+                    cross[i] = dict(zip(("ck", "cv"), attention.cross_kv(
+                        cfg, layer["cross"], enc_out)))
+            del enc_out
+    return [{key: cross[i][key] if key in cross.get(i, {}) else torch.zeros(
+                 sp.shape, dtype=sp.dtype, device=dev)
+             for key, sp in ls.items()}
+            for i, ls in enumerate(cache_spec(cfg, b, s))]
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +190,9 @@ def init_cache(cfg: ModelConfig, params, b: int, s: int) -> list[Tree]:
 
 class Transformer(ParamTree):
     """The model: `emb`, `ln_f` and `layers` (an `nn.ModuleList` of one
-    `ParamTree` per decoder layer: `ln1`, `mixer`, `ln2`, `ffn`), named as
-    `model_spec`'s tree.
+    `ParamTree` per decoder layer: `ln1`, `mixer`, [`ln_x`, `cross`,]
+    `ln2`, `ffn`), then whisper's `pos_emb` and `enc` (its `layers` a
+    `ModuleList` too, and `ln_f`), named as `model_spec`'s tree.
 
     `device=None` is the card. With a `generator` (a `torch.Generator` on
     that device) every weight is drawn by the reference's init rules,
@@ -184,10 +211,20 @@ class Transformer(ParamTree):
             return (init_params(generator, sp) if generator is not None
                     else empty_params(sp, dev))
 
+        def stack(layers):
+            return nn.ModuleList(ParamTree(make(layers[str(i)]))
+                                 for i in range(len(layers)))
+
         super().__init__(make({k: spec[k] for k in ("emb", "ln_f")}))
         self.cfg = cfg
-        self.layers = nn.ModuleList(ParamTree(make(spec["layers"][str(i)]))
-                                    for i in range(cfg.n_layers))
+        self.layers = stack(spec["layers"])
+        if "pos_emb" in spec:
+            self.register_parameter("pos_emb", nn.Parameter(
+                make({"pos_emb": spec["pos_emb"]})["pos_emb"]))
+        if "enc" in spec:
+            layers = stack(spec["enc"]["layers"])
+            self.enc = ParamTree(make({"ln_f": spec["enc"]["ln_f"]}))
+            self.enc.layers = layers
 
     def forward(self, tokens, **kw):
         return forward(self.cfg, self, tokens, **kw)
@@ -205,6 +242,8 @@ def _mixer(cfg, ls, p, h, *, mode, positions, cache, cache_len):
     """The layer's mixer in `mode`: (output, new cache entries)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode}")
+    if ls.mixer == "attn_bidir":
+        return attention.gqa_full(cfg, p, h, positions, causal=False), {}
     if ls.mixer == "rwkv":
         if mode == "decode":
             o, st, xp = rwkv.time_mix_step(cfg, p, h, cache["state"],
@@ -240,8 +279,27 @@ def _mixer(cfg, ls, p, h, *, mode, positions, cache, cache_len):
     return attention.gqa_full(cfg, p, h, positions, causal=True), {}
 
 
+def _cross(cfg, p, hx, *, mode, cache, enc_out):
+    """The cross sublayer: (output, new cache entries). Decode reads `ck`
+    / `cv` from the cache and returns the same tensors; prefill computes
+    them from `enc_out` once, attends over them and returns them; train
+    attends over `enc_out` (`attention.cross_full`)."""
+    if mode == "decode":
+        return (_cross_decode(cfg, p, hx, cache["ck"], cache["cv"]),
+                {"ck": cache["ck"], "cv": cache["cv"]})
+    if enc_out is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                         f"`frames` in {mode} mode")
+    if mode == "prefill":
+        ck, cv = attention.cross_kv(cfg, p, enc_out)
+        return attention.cross_attend(cfg, p, hx, ck, cv), {"ck": ck,
+                                                            "cv": cv}
+    return attention.cross_full(cfg, p, hx, enc_out), {}
+
+
 def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
-                positions=None, cache: Tree | None = None, cache_len=None):
+                positions=None, cache: Tree | None = None, cache_len=None,
+                enc_out=None):
     """Returns (x, aux, new_cache); aux is the MoE layer's load-balancing
     loss (an f32 scalar), 0.0 for a dense FFN."""
     norm = _norm(cfg)
@@ -249,6 +307,11 @@ def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
                           positions=positions, cache=cache,
                           cache_len=cache_len)
     x = x + o
+    if ls.cross:
+        o, c = _cross(cfg, p["cross"], norm(x, p["ln_x"]), mode=mode,
+                      cache=cache, enc_out=enc_out)
+        new_cache.update(c)
+        x = x + o
     h = norm(x, p["ln2"])
     aux = 0.0
     if ls.ffn == "moe":
@@ -266,60 +329,117 @@ def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
     return x + o, aux, new_cache
 
 
+def _cross_decode(cfg, p, x, ck, cv):
+    """One token's cross attention over the cached K/V (B, Sk, H, Dh)."""
+    b = x.shape[0]
+    q = dense(x, p["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    o = attention._grouped_attn(q, ck, cv, None)
+    return dense(o.reshape(b, 1, -1), p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # full model
 
 
-def _positions(tokens):
+def _positions(cfg, tokens):
+    """0..S-1 along each row; (3, B, S), the same in every stream, for
+    M-RoPE."""
     b, s = tokens.shape[-2:]
-    return torch.arange(s, dtype=torch.int32,
-                        device=tokens.device).expand(b, s)
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b,
+                                                                          s)
+    return pos.expand(3, b, s) if cfg.mrope_sections else pos
 
 
-def _require_increasing(positions) -> None:
+def _require_increasing(cfg, positions) -> None:
     """Causal attention masks by index (`attention._flash`) or skips the
     keys past a query chunk (`attention.mla_full`); either equals the
-    reference's position mask only where positions rise along each
-    row."""
-    if positions.shape[-1] > 1 and not bool(
-            (positions[..., 1:] > positions[..., :-1]).all()):
+    reference's position mask only where positions rise along each row.
+    With M-RoPE the reference masks by the last (w) stream
+    (`repro/models/attention.py:83`), and only that stream is checked."""
+    pos = positions[-1] if cfg.mrope_sections else positions
+    if pos.shape[-1] > 1 and not bool((pos[..., 1:] > pos[..., :-1]).all()):
         raise ValueError("causal attention masks by index: positions must "
                          "increase strictly along each sequence")
 
 
+def _sinusoid(s: int, d: int, dtype, device=None):
+    """The encoder's fixed (S, D) position table: sin | cos halves."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / (d // 2)))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """Whisper's encoder over precomputed frame embeddings (B, S, D) (the
+    conv frontend is the reference's stub too): the sinusoid table added,
+    then `encoder_layers` bidirectional layers (each attention a
+    non-causal flash call), then `enc.ln_f`. With `cfg.remat`, under
+    autograd each layer is recomputed in the backward, as the decoder's."""
+    b, s, d = frames.shape
+    x = frames + _sinusoid(s, d, frames.dtype, frames.device)[None]
+    ls = _enc_layer(cfg)
+    pos = torch.arange(s, dtype=torch.int32, device=frames.device).expand(b,
+                                                                          s)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in params["enc"]["layers"]:
+        if remat:
+            x = checkpoint(lambda x, layer=layer: apply_layer(
+                cfg, ls, layer, x, mode="train", positions=pos)[0], x,
+                use_reentrant=False)
+        else:
+            x = apply_layer(cfg, ls, layer, x, mode="train", positions=pos)[0]
+    return _norm(cfg)(x, params["enc"]["ln_f"])
+
+
 def trunk(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
-          cache: list[Tree] | None = None, cache_len=None):
+          cache: list[Tree] | None = None, cache_len=None, frames=None):
     """Everything before the output head: (final-normed hidden states
     (B, S, D), aux, new_cache). aux is the sum of the MoE layers' aux
     losses (f32). new_cache is a list of per-layer caches (see the module
     docstring) for prefill and decode, empty for train. Positions a caller
     passes for train or prefill must rise along each row (checked once
-    here). With `cfg.remat`, a train forward under autograd checkpoints
-    each layer, its aux carried out beside its output."""
+    here; M-RoPE's (3, B, S) along its w stream). An encoder-decoder model
+    encodes `frames` in train and prefill (decode reads the cross K/V from
+    the cache) and adds its learned positions. With `cfg.remat`, a train
+    forward under autograd checkpoints each layer, its aux carried out
+    beside its output."""
     x = params["emb"][tokens.long()].to(cfg.dtype)
     if positions is None:
         if mode == "decode":
             positions = torch.full((tokens.shape[0], 1), int(cache_len),
                                    dtype=torch.int32, device=tokens.device)
+            if cfg.mrope_sections:
+                positions = positions.expand(3, *positions.shape)
         else:
-            positions = _positions(tokens)
+            positions = _positions(cfg, tokens)
     elif mode != "decode":
-        _require_increasing(positions)
+        _require_increasing(cfg, positions)
+    enc_out = None
+    if cfg.is_encdec and mode != "decode" and frames is not None:
+        enc_out = encode(cfg, params, frames)
+    if cfg.learned_pos:
+        if mode == "decode":     # the reference's dynamic_slice clamps
+            at = min(max(int(cache_len), 0), cfg.max_position - 1)
+            pe = params["pos_emb"][at:at + 1]
+        else:
+            pe = params["pos_emb"][:tokens.shape[-1]]
+        x = x + pe[None].to(x.dtype)
     new_cache: list[Tree] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for i, layer in enumerate(params["layers"]):
         ls = cfg.layer_kind(i)
         if remat:
-            x, a = checkpoint(lambda x, ls=ls, layer=layer: apply_layer(
-                cfg, ls, layer, x, mode=mode, positions=positions)[:2],
-                x, use_reentrant=False)
+            x, a = checkpoint(lambda x, e, ls=ls, layer=layer: apply_layer(
+                cfg, ls, layer, x, mode=mode, positions=positions,
+                enc_out=e)[:2], x, enc_out, use_reentrant=False)
             aux = aux + a
             continue
         x, a, nc = apply_layer(cfg, ls, layer, x, mode=mode,
                                positions=positions,
                                cache=None if cache is None else cache[i],
-                               cache_len=cache_len)
+                               cache_len=cache_len, enc_out=enc_out)
         aux = aux + a
         if mode in ("prefill", "decode"):
             new_cache.append(nc)
@@ -332,9 +452,9 @@ def head(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, mode: str, positions=None,
-            cache: list[Tree] | None = None, cache_len=None):
+            cache: list[Tree] | None = None, cache_len=None, frames=None):
     """Unified forward. Returns (logits (B, S, V), aux, new_cache)."""
     x, aux, new_cache = trunk(cfg, params, tokens, mode=mode,
                               positions=positions, cache=cache,
-                              cache_len=cache_len)
+                              cache_len=cache_len, frames=frames)
     return head(cfg, params, x), aux, new_cache

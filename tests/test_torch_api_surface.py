@@ -7,8 +7,10 @@ reference's; `SweepPlan`'s fields are the reference's with `interpret` as
 `axis`) wherever the reference takes one. The LM substrate's modules
 (`configs`, `models`, `utils.flops`, `optim.adamw`, `data.pipeline`,
 `launch.train`) have the reference's names but those `LM_NOT_PORTED`
-lists, with their signatures less a sharding context and whisper's
-encoder inputs.
+lists, with their signatures less a sharding context. The roofline
+model (`launch.roofline`, and `kernels.ops`' `hbm_bytes_per_cell` and
+`kernel_roofline`) has the reference's names and signatures, less what
+models XLA's HLO, its TPU lowering and TPU VMEM (ROADMAP.md §C (23)).
 """
 
 import dataclasses
@@ -242,22 +244,20 @@ LM_NOT_PORTED = {
         "TP_RULES": "§A9 (iv)", "FSDP_RULES": "§A9 (iv)",
         "EP_RULES": "§A9 (iv)", "logical_to_pspec": "§A9 (iv)",
         "sanitize_pspec": "§A9 (iv)", "sanitized_pspecs": "§A9 (iv)",
-        "tree_pspecs": "§A9 (iv)", "tree_shapes": "§A9 (iv)",
-        "apply_mrope": "§A9 (iii)"},
+        "tree_pspecs": "§A9 (iv)", "tree_shapes": "§A9 (iv)"},
     "models.moe": {"ShardCtx": "§A9 (iv)"},
-    "models.rwkv": {}, "models.mamba": {},
-    "models.attention": {"cross_spec": "§A9 (iii)",
-                         "cross_full": "§A9 (iii)"},
-    "models.transformer": {"encode": "§A9 (iii)"},
+    "models.rwkv": {}, "models.mamba": {}, "models.attention": {},
+    "models.transformer": {},
     "models.steps": {"logits_pspec": "§A9 (iv)"},
     "optim.adamw": {}, "data.pipeline": {}, "launch.train": {},
 }
 # parameters the port's functions drop: a sharding context (a mesh,
-# §A9 (iv)), whisper's encoder inputs (§A9 (iii)) and the reference's
-# attention query chunks (one flash call tiles its own way, ROADMAP.md
-# §C (16); MLA reads `cfg.q_chunk`, §C (21)); `init_params` takes a
-# torch.Generator where the reference takes a key
-LM_DROPPED = {"ctx", "frames", "enc_out", "bidir", "q_chunk"}
+# §A9 (iv)) and the reference's attention query chunks (one flash call
+# tiles its own way, ROADMAP.md §C (16); MLA and cross attention read
+# `cfg.q_chunk`, §C (21), (24)); `layer_param_spec`'s `bidir`, which the
+# reference ignores too (`ls.mixer` carries it: "attn_bidir");
+# `init_params` takes a torch.Generator where the reference takes a key
+LM_DROPPED = {"ctx", "q_chunk", "bidir"}
 # parameters the port's functions add at the end: `rope_freqs` builds on a
 # device; `apply_updates` takes the paths that decay, which the reference
 # reads off its stacked layout's ranks (the train step passes them)
@@ -287,3 +287,46 @@ def test_lm_surface_matches_reference(mod):
                 if a not in LM_DROPPED]
         got = list(inspect.signature(p).parameters)
         assert got == want + LM_ADDED.get(name, []), (mod, name)
+
+
+# the roofline model (ROADMAP.md §A8): reference names with no counterpart
+# in the port -> why
+ROOFLINE_LEFT_OUT = {
+    "launch.roofline": {"Collective": "§C (23): parses XLA HLO",
+                        "parse_collectives": "§C (23): parses XLA HLO",
+                        "collective_wire_bytes": "§C (23): parses XLA HLO",
+                        "ICI_BW": "§C (23): a TPU rate (NVLINK_BW here)"},
+    "kernels.ops": {"kernel_vmem_bytes": "§C (23): TPU VMEM",
+                    "VMEM_BYTES": "§C (23): TPU VMEM (L2_BYTES here)",
+                    "aot_export_tpu": "§C (23): a TPU lowering",
+                    "compiled_lowering_smoke": "§C (23): a TPU lowering"},
+}
+ROOFLINE_NAMES = {
+    "launch.roofline": ["shape_bytes", "RooflineTerms",
+                        "matrix_profile_roofline", "roofline_fraction",
+                        "PEAK_FLOPS", "HBM_BW"],
+    "kernels.ops": ["hbm_bytes_per_cell", "FLOPS_PER_CELL",
+                    "kernel_roofline"],
+}
+
+
+@pytest.mark.parametrize("mod", sorted(ROOFLINE_NAMES))
+def test_roofline_surface_matches_reference(mod):
+    import importlib
+
+    ref = importlib.import_module(f"repro.{mod}")
+    port = importlib.import_module(f"repro_torch.{mod}")
+    for name in ROOFLINE_LEFT_OUT[mod]:
+        assert hasattr(ref, name) and not hasattr(port, name), (mod, name)
+    for name in ROOFLINE_NAMES[mod]:
+        r, p = getattr(ref, name), getattr(port, name)
+        if inspect.isfunction(r):
+            assert (list(inspect.signature(p).parameters)
+                    == list(inspect.signature(r).parameters)), (mod, name)
+        elif inspect.isclass(r):
+            # the one field the port adds: the peak a term's FLOPs run at
+            assert _fields(p) == _fields(r) + ["peak_flops"], (mod, name)
+        elif name == "FLOPS_PER_CELL":
+            assert p == r
+        else:                     # a rate: the card's, not the TPU's
+            assert p != r, (mod, name)

@@ -1,7 +1,8 @@
 """The port's own serving contracts, as the reference's
 `tests/test_consistency.py` states them for its models, on the smoke
-configs of every ported family (dense GQA, MoE, MLA, MLA + MoE, RWKV6,
-Mamba / attention hybrid with MoE; CPU, f32 over bf16 weights):
+configs of every family (dense GQA, MoE, MLA, MLA + MoE, RWKV6,
+Mamba / attention hybrid with MoE, whisper's encoder-decoder, M-RoPE;
+CPU, f32 over bf16 weights):
 
 - decoding token by token from a zero cache reproduces the full-sequence
   causal forward, max|Δ| / max|logits| < 5e-3 (the reference's bound;
@@ -10,6 +11,12 @@ Mamba / attention hybrid with MoE; CPU, f32 over bf16 weights):
 - a prefill into a cache of S + T slots followed by T greedy steps gives
   the reference's greedy tokens, step by step (f32: no near-ties in these
   seeded cases, checked by the top-two gap).
+
+whisper's frames are drawn with numpy (scale 0.02, as the reference's
+tests); its decode cache takes the cross K/V from `init_cache(frames=)`.
+qwen2-vl's prefill runs over (3, B, T) positions whose t and h streams
+differ from w; decode, as the reference's, rotates by `cache_len` in all
+three streams, so decode vs teacher forcing runs 0..T-1 in all three.
 
 The `gpu`-marked test holds the first contract on the card, where prefill
 runs the flash kernel and decode runs torch ops.
@@ -33,7 +40,8 @@ from repro_torch.kernels import flash_attn
 from repro_torch.models import convert, steps, transformer
 
 DENSE = ["llama3-8b", "qwen2-7b", "qwen2.5-32b", "olmoe-1b-7b",
-         "deepseek-v2-lite-16b", "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b"]
+         "deepseek-v2-lite-16b", "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b",
+         "whisper-large-v3", "qwen2-vl-2b"]
 T = 12
 # the prompt seed of the greedy test: 10, or another where seed 10's
 # greedy steps hold a near-tie (olmoe's top two logits 3.4e-4 apart at
@@ -51,11 +59,34 @@ def _tokens(cfg, b, t, seed):
         0, cfg.vocab_size, (b, t)).astype(np.int32))
 
 
+def _frames(cfg, b, seed=3, device="cpu"):
+    """whisper's frames (None for a decoder-only model)."""
+    if not cfg.is_encdec:
+        return None
+    return torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)).to(
+            device)
+
+
+def _extras(cfg, b, t):
+    """Frames, and M-RoPE positions: w rising, t and h apart from it."""
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = _frames(cfg, b)
+    if cfg.mrope_sections:
+        w = torch.arange(t, dtype=torch.int32)
+        out["positions"] = torch.stack([w // 6, (w // 2) % 3, w])[
+            :, None].expand(3, b, t)
+    return out
+
+
 def _decode_vs_teacher_forcing(cfg, model, tokens):
     b, t = tokens.shape
+    frames = _frames(cfg, b, device=tokens.device)
     with torch.no_grad():
-        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
-    cache = transformer.init_cache(cfg, model, b, t)
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train",
+                                         frames=frames)
+    cache = transformer.init_cache(cfg, model, b, t, frames=frames)
     dec = steps.make_decode_step(cfg)
     errs = []
     for i in range(t):
@@ -78,10 +109,12 @@ def test_prefill_matches_train(arch):
     cfg = configs.get_smoke(arch)
     model = _model(cfg, 3)
     tokens = _tokens(cfg, 2, T, seed=4)
+    ex = _extras(cfg, 2, T)
     with torch.no_grad():
-        full, _, _ = transformer.forward(cfg, model, tokens, mode="train")
+        full, _, _ = transformer.forward(cfg, model, tokens, mode="train",
+                                         **ex)
         pre, _, cache = transformer.forward(cfg, model, tokens,
-                                            mode="prefill")
+                                            mode="prefill", **ex)
     np.testing.assert_allclose(pre.numpy(), full.numpy(), rtol=3e-3,
                                atol=3e-3)
     assert len(cache) == cfg.n_layers
@@ -89,7 +122,7 @@ def test_prefill_matches_train(arch):
         spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), 2, T)
         assert {k: tuple(v.shape) for k, v in layer.items()} == {
             k: v.shape for k, v in spec.items()}
-    last, _ = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    last, _ = steps.make_prefill_step(cfg)(model, {"tokens": tokens, **ex})
     np.testing.assert_allclose(last.numpy(), full[:, -1:].numpy(),
                                rtol=3e-3, atol=3e-3)
 
@@ -119,6 +152,7 @@ def test_greedy_decode_matches_reference(arch):
     tok = _tokens(cfg, 2, 10, seed=GREEDY_SEED.get(arch, 10))
     n_new = 6
     b, s = tok.shape
+    ex = _extras(cfg, b, s)
 
     def ref_grow(cache):
         big = rtransformer.init_cache(rcfg, params, b, s + n_new)
@@ -135,7 +169,9 @@ def test_greedy_decode_matches_reference(arch):
     rpre, rdec = (rsteps.make_prefill_step(rcfg, None),
                   jax.jit(rsteps.make_decode_step(rcfg, None)))
     ref, ref_gap = _greedy(
-        lambda p, t: rpre(p, {"tokens": jnp.asarray(t.numpy())}),
+        lambda p, t: rpre(p, {"tokens": jnp.asarray(t.numpy()),
+                              **{k: jnp.asarray(v.numpy())
+                                 for k, v in ex.items()}}),
         lambda p, c, nxt, n: rdec(p, c, {"tokens": nxt,
                                          "cache_len": jnp.int32(n)}),
         rsteps.greedy_next, ref_grow, params, tok, n_new)
@@ -153,7 +189,7 @@ def test_greedy_decode_matches_reference(arch):
 
     pre, dec = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
     got, _ = _greedy(
-        lambda p, t: pre(p, {"tokens": t}),
+        lambda p, t: pre(p, {"tokens": t, **ex}),
         lambda p, c, nxt, n: dec(p, c, {"tokens": nxt, "cache_len": n}),
         steps.greedy_next, port_grow, model, tok, n_new)
     assert ref_gap > 1e-3, "a near-tie: the seeded case must not have one"

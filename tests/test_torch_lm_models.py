@@ -1,9 +1,12 @@
 """The port's LM substrate (`repro_torch.configs`, `repro_torch.models`,
 `repro_torch.utils.flops`) against the reference's (`repro.configs`,
-`repro.models`, `repro.utils.flops`), on the CPU, for every ported family:
+`repro.models`, `repro.utils.flops`), on the CPU, for every family:
 dense GQA (llama3-8b, qwen2-7b, qwen2.5-32b), MoE (olmoe-1b-7b), MLA
-(minicpm3-4b) and MLA with MoE and a dense first layer
-(deepseek-v2-lite-16b).
+(minicpm3-4b), MLA with MoE and a dense first layer
+(deepseek-v2-lite-16b), RWKV6, Mamba / attention with MoE (jamba), the
+encoder-decoder with cross attention (whisper-large-v3, its frames drawn
+with numpy) and M-RoPE (qwen2-vl-2b, over (3, B, T) positions whose t and
+h streams differ from a strictly rising w stream).
 
 Configs, input specs, parameter and cache specs, parameter counts and
 model FLOPs are compared exactly. Logits and caches are compared with the
@@ -42,8 +45,8 @@ from repro_torch.models.common import (
 from repro_torch.utils import flops
 
 DENSE = ["llama3-8b", "qwen2-7b", "qwen2.5-32b", "olmoe-1b-7b",
-         "deepseek-v2-lite-16b", "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b"]
-UNPORTED = sorted(set(rconfigs.list_archs()) - set(DENSE))
+         "deepseek-v2-lite-16b", "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b",
+         "whisper-large-v3", "qwen2-vl-2b"]
 SEQ_LENS = [12, 16]
 
 
@@ -79,6 +82,34 @@ def _tokens(cfg, b, t, seed=1):
         0, cfg.vocab_size, (b, t)).astype(np.int32)
 
 
+def _mrope_positions(b, t):
+    """(3, b, t): a strictly rising w stream, t and h streams apart from it
+    (frames of 6 tokens, rows of 2), as an image's patches would have."""
+    w = np.arange(t)
+    return np.broadcast_to(np.stack([w // 6, (w // 2) % 3, w])[:, None],
+                           (3, b, t)).astype(np.int32)
+
+
+def _extras(cfg, b, t, seed=3):
+    """The inputs beside the tokens, as numpy: whisper's frames (scale
+    0.02, as the reference's tests draw them) and M-RoPE's positions."""
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = (np.random.default_rng(seed).standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.mrope_sections:
+        out["positions"] = _mrope_positions(b, t)
+    return out
+
+
+def _jnp(d):
+    return {k: jnp.asarray(v) for k, v in d.items()}
+
+
+def _torch(d):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in d.items()}
+
+
 def _ref_layer(tree, cfg, i):
     """(the reference's subtree holding decoder layer i, stacked?): a
     `prefix` entry, or the `period` entry of its position in the period."""
@@ -104,7 +135,13 @@ def _ref_layout(tree) -> dict:
             out[f"{path}{key}"] = (tuple(shape), tuple(axes), val.init,
                                    val.scale, _dtype_name(val.dtype))
 
-    walk({k: tree[k] for k in ("emb", "ln_f")}, "", False)
+    walk({k: tree[k] for k in ("emb", "ln_f", "pos_emb") if k in tree}, "",
+         False)
+    if "enc" in tree:
+        n = next(iter(tree_leaves(tree["enc"]["blk"])))[1].shape[0]
+        for i in range(n):
+            walk(tree["enc"]["blk"], f"enc.layers.{i}.", True)
+        walk(tree["enc"]["ln_f"], "enc.ln_f.", False)
     prefix, period = tree.get("prefix", {}), tree["period"]
     for i in range(len(prefix)):
         walk(prefix[str(i)], f"layers.{i}.", False)
@@ -155,15 +192,6 @@ def test_input_specs_match_reference(arch):
         for key, (shp, dt) in got.items():
             assert shp == ref[key].shape, (name, key)
             assert _dtype_name(dt) == _dtype_name(ref[key].dtype), (name, key)
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_naming_the_roadmap_item(arch):
-    for cfg in (configs.get_config(arch), configs.get_smoke(arch)):
-        with pytest.raises(NotImplementedError, match=r"§A9 \(iii\)"):
-            transformer.Transformer(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=r"§A9 \(iii\)"):
-            flops.param_counts(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -300,12 +328,13 @@ def test_model_is_drawn_on_its_device_and_defaults_to_the_card(monkeypatch):
 def test_train_logits_match_reference(arch, t):
     rcfg, params, cfg, model = _ref_model(arch)
     tok = _tokens(cfg, 2, t)
+    ex = _extras(cfg, 2, t)
     ref, raux, _ = rtransformer.forward(rcfg, params, jnp.asarray(tok),
-                                        mode="train")
+                                        mode="train", **_jnp(ex))
     with torch.no_grad():
         got, aux, cache = transformer.forward(cfg, model,
                                               torch.from_numpy(tok),
-                                              mode="train")
+                                              mode="train", **_torch(ex))
     ref = np.asarray(ref)
     assert got.shape == ref.shape and got.dtype == torch.float32
     assert cache == [] and aux.dtype == torch.float32
@@ -314,12 +343,10 @@ def test_train_logits_match_reference(arch, t):
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=_tol(ref))
     # the loss forward too
     labels = _tokens(cfg, 2, t, seed=2)
-    rloss, rmet = rsteps.make_loss_fn(rcfg, None)(
-        params, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(labels)})
+    batch = {"tokens": tok, "labels": labels, **ex}
+    rloss, rmet = rsteps.make_loss_fn(rcfg, None)(params, _jnp(batch))
     with torch.no_grad():
-        loss, met = steps.make_loss_fn(cfg)(
-            model, {"tokens": torch.from_numpy(tok),
-                    "labels": torch.from_numpy(labels)})
+        loss, met = steps.make_loss_fn(cfg)(model, _torch(batch))
     assert abs(float(loss) - float(rloss)) <= 1e-5 * (1 + abs(float(rloss)))
     assert abs(float(met["ce"]) - float(rmet["ce"])) <= 1e-5 * (
         1 + abs(float(rmet["ce"])))
@@ -331,10 +358,11 @@ def test_train_logits_match_reference(arch, t):
 def test_prefill_logits_and_cache_match_reference(arch, t):
     rcfg, params, cfg, model = _ref_model(arch)
     tok = _tokens(cfg, 2, t)
+    ex = _extras(cfg, 2, t)
     ref_lg, ref_cache = rsteps.make_prefill_step(rcfg, None)(
-        params, {"tokens": jnp.asarray(tok)})
+        params, _jnp({"tokens": tok, **ex}))
     got_lg, got_cache = steps.make_prefill_step(cfg)(
-        model, {"tokens": torch.from_numpy(tok)})
+        model, _torch({"tokens": tok, **ex}))
     ref_lg = np.asarray(ref_lg)
     assert got_lg.shape == ref_lg.shape == (2, 1, cfg.padded_vocab)
     np.testing.assert_allclose(got_lg.numpy(), ref_lg, rtol=0,
@@ -352,11 +380,11 @@ def test_prefill_logits_and_cache_match_reference(arch, t):
         np.testing.assert_allclose(g, r, rtol=0, atol=_tol(r))
     # the full prefill forward (all positions) against the reference's
     ref_all, _, _ = rtransformer.forward(rcfg, params, jnp.asarray(tok),
-                                         mode="prefill")
+                                         mode="prefill", **_jnp(ex))
     with torch.no_grad():
         got_all, _, _ = transformer.forward(cfg, model,
                                             torch.from_numpy(tok),
-                                            mode="prefill")
+                                            mode="prefill", **_torch(ex))
     ref_all = np.asarray(ref_all)
     np.testing.assert_allclose(got_all.numpy(), ref_all, rtol=0,
                                atol=_tol(ref_all))
@@ -367,7 +395,8 @@ def test_prefill_logits_and_cache_match_reference(arch, t):
 def test_decode_step_logits_and_cache_match_reference(arch, s):
     """One decode step at cache_len 3 on a seeded cache of s slots (the
     reference's ring-slot write and valid-key mask; the recurrent states
-    and token shifts of RWKV6 and Mamba change whole)."""
+    and token shifts of RWKV6 and Mamba change whole; whisper's cross K/V
+    are read, and stay as they were)."""
     rcfg, params, cfg, model = _ref_model(arch)
     rng = np.random.default_rng(5)
     ref_cache = jax.tree.map(
@@ -417,10 +446,11 @@ def test_weights_round_trip_both_ways(arch):
     rparams = jax.tree.map(jnp.asarray,
                            _numpy(convert.params_to_reference(drawn, cfg)))
     tok = _tokens(cfg, 1, 12)
+    ex = _extras(cfg, 1, 12)
     ref_lg, _, _ = rtransformer.forward(rcfg, rparams, jnp.asarray(tok),
-                                        mode="train")
+                                        mode="train", **_jnp(ex))
     with torch.no_grad():
-        got, _, _ = drawn(torch.from_numpy(tok), mode="train")
+        got, _, _ = drawn(torch.from_numpy(tok), mode="train", **_torch(ex))
     ref_lg = np.asarray(ref_lg)
     np.testing.assert_allclose(got.numpy(), ref_lg, rtol=0,
                                atol=_tol(ref_lg))
@@ -544,13 +574,21 @@ def test_the_flash_wrapper_raises_off_cuda_and_positions_must_rise():
     q = torch.empty(1, 2, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attn.flash_attention(q, q, q, bq=16, bk=16)
-    transformer._require_increasing(torch.arange(5).expand(2, 5))
-    with pytest.raises(ValueError, match="increase strictly"):
-        transformer._require_increasing(torch.tensor([[0, 1, 2], [0, 2, 1]]))
-    with pytest.raises(ValueError, match="increase strictly"):
-        transformer._require_increasing(torch.tensor([[0, 1, 1]]))
-    # the model checks positions a caller passes, on the CPU too
     cfg = configs.get_smoke("llama3-8b")
+    transformer._require_increasing(cfg, torch.arange(5).expand(2, 5))
+    with pytest.raises(ValueError, match="increase strictly"):
+        transformer._require_increasing(cfg, torch.tensor([[0, 1, 2],
+                                                           [0, 2, 1]]))
+    with pytest.raises(ValueError, match="increase strictly"):
+        transformer._require_increasing(cfg, torch.tensor([[0, 1, 1]]))
+    # M-RoPE masks by its w stream, the last: only that one must rise
+    vl = configs.get_smoke("qwen2-vl-2b")
+    pos = torch.from_numpy(_mrope_positions(2, 12))
+    assert not bool((pos[0, :, 1:] > pos[0, :, :-1]).all())
+    transformer._require_increasing(vl, pos)
+    with pytest.raises(ValueError, match="increase strictly"):
+        transformer._require_increasing(vl, pos.flip(0))
+    # the model checks positions a caller passes, on the CPU too
     model = transformer.Transformer(cfg, device="cpu",
                                     generator=torch.Generator().manual_seed(0))
     tokens = torch.zeros(1, 8, dtype=torch.int32)

@@ -6,9 +6,11 @@ Tolerances, each element against its reference value:
 - `flash_attention_backward_plain` (f32): within 1e-5 · (1 + max|ref|) of
   `jax.grad` through the reference's `ref_attention` and of autograd
   through `flash_attention_plain`.
-- One `make_train_step` on each ported smoke config (dense GQA, MoE,
-  MLA, MLA + MoE with deepseek's unstacked dense first layer, whose 1-d
-  leaves AdamW does not decay), at `microbatches` 1 and 2, against `jax.jit` of the reference's, from the same weights
+- One `make_train_step` on each smoke config (dense GQA, MoE, MLA, MLA +
+  MoE with deepseek's unstacked dense first layer, whose 1-d leaves AdamW
+  does not decay, RWKV6, jamba, whisper with its frames and its encoder
+  stacked under `enc.blk` in the reference, qwen2-vl over (3, B, T)
+  positions split on their batch axis), at `microbatches` 1 and 2, against `jax.jit` of the reference's, from the same weights
   (carried by `models.convert`) and batch. With the weights in f32, loss,
   grad norm, new params, m and v are within 1e-5 · (1 + max|ref|). With
   the weights in bf16, as the configs ship them, both packages keep each
@@ -32,7 +34,18 @@ Tolerances, each element against its reference value:
   max|ref|) of AdamW's step recomputed from the port's own m and v, op
   for op, while m holds its gradient to the reference's as every other
   element's. An element whose reference gradient is exactly 0 keeps the
-  bound of the rest.
+  bound of the rest. With bf16 weights and 2 microbatches on those
+  configs and the rest past the dense GQA ones, an element whose two
+  microbatch gradients cancel gets the same treatment: its first moment
+  differs in sign (or in being 0) between the packages, within the m
+  bound, and the reference's mean gradient |m| / (1 - beta1) is within
+  one bf16 rounding (2^-8) of the sum of the port's two microbatch
+  gradients |g_1| + |g_2| at that element. It exempts one element of
+  qwen2-vl's case, emb[96, 23]: microbatch gradients -0.1089 and
+  +0.1089 that sum to exactly 0 in the port and to 1.8e-5 in the
+  reference (8.4e-5 of their sum); and one of deepseek's, which the
+  100 eps rule already holds; none in any other case. The dense GQA
+  configs take neither rule.
 - remat on against off (with the MoE aux carried out of each
   checkpointed layer), and the trainer's runs against each other: bit
   for bit.
@@ -74,8 +87,8 @@ from repro_torch.optim import adamw
 
 GQA = ["llama3-8b", "qwen2-7b", "qwen2.5-32b"]
 DENSE = GQA + ["olmoe-1b-7b", "deepseek-v2-lite-16b", "minicpm3-4b",
-               "rwkv6-3b", "jamba-v0.1-52b"]
-UNPORTED = sorted(set(rconfigs.list_archs()) - set(DENSE))
+               "rwkv6-3b", "jamba-v0.1-52b", "whisper-large-v3",
+               "qwen2-vl-2b"]
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
@@ -151,9 +164,23 @@ def _models(arch, weights, seed=7):
 
 
 def _batch(cfg, b=4, t=16, seed=1):
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (b, t + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    """Tokens and labels; whisper's frames; M-RoPE positions whose t and h
+    streams differ from w (and from row to row, so a wrong microbatch
+    split would show)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, t + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encdec:
+        out["frames"] = (rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.mrope_sections:
+        w = np.arange(t)
+        row = np.arange(b)[:, None]
+        out["positions"] = np.stack([np.broadcast_to(w // 6 + row, (b, t)),
+                                     (w // 2 + row) % 3,
+                                     np.broadcast_to(w, (b, t))]).astype(
+                                         np.int32)
+    return out
 
 
 def _ref_leaves(tree):
@@ -174,6 +201,26 @@ def _first_step(c, p, m, v, lr, decayed):
     return (p32 - delta * lr).to(p.dtype).double().numpy()
 
 
+def _abs_grad_sum(cfg, model, batch, mb):
+    """{path: sum over the `mb` microbatches of |g_i|}, each g_i the
+    port's gradient of one microbatch's loss (split as the train step
+    splits: M-RoPE positions on their batch axis), as float64 numpy."""
+    loss_fn = steps.make_loss_fn(cfg)
+    names, tensors = zip(*adamw.leaves(model).items())
+    out = {n: 0.0 for n in names}
+    for i in range(mb):
+        one = {k: torch.from_numpy(np.ascontiguousarray(np.split(
+            v, mb, axis=1 if k == "positions" and cfg.mrope_sections
+            else 0)[i])) for k, v in batch.items()}
+        with torch.enable_grad():
+            loss, _ = loss_fn(model, one)
+            g = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                    materialize_grads=True)
+        for n, x in zip(names, g):
+            out[n] = out[n] + np.abs(x.double().numpy())
+    return out
+
+
 @pytest.mark.parametrize("weights", ["f32", "bf16"])
 @pytest.mark.parametrize("microbatches", [1, 2])
 @pytest.mark.parametrize("arch", DENSE)
@@ -186,6 +233,9 @@ def test_train_step_matches_reference(arch, microbatches, weights):
         rcfg, None, ropt, microbatches=microbatches))(
         params, radamw.init_state(params),
         {k: jnp.asarray(v) for k, v in batch.items()})
+    gsum = (_abs_grad_sum(cfg, model, batch, microbatches)
+            if weights == "bf16" and microbatches > 1 and arch not in GQA
+            else None)
     state = adamw.init_state(model)
     old = {k: t.detach().clone() for k, t in model.named_parameters()}
     got_model, got_state, met = steps.make_train_step(
@@ -211,14 +261,26 @@ def test_train_step_matches_reference(arch, microbatches, weights):
             assert float(err.max()) <= 2 * lr, path
             continue
         if arch not in GQA:
+            rm, pm = ref_m[path], ms[path].double().numpy()
             # AdamW's move is not sign-saturated where 0 < |g| < 100 eps
-            rm = np.abs(ref_m[path])
-            near = (rm > 0) & (rm < (1 - opt.beta1) * 100 * opt.eps)
+            apart = (rm != 0) & (np.abs(rm) < (1 - opt.beta1) * 100
+                                 * opt.eps)
+            if gsum is not None:
+                # bf16: two microbatch gradients that cancel to within one
+                # rounding of their sum, to a sign (or zero) the packages
+                # need not share
+                apart |= ((np.sign(pm) != np.sign(rm))
+                          & (np.abs(pm - rm) <= bf16 * np.abs(rm).max())
+                          & (np.abs(rm) <= (1 - opt.beta1) * 2.0 ** -8
+                             * gsum[path]))
+        else:
+            apart = np.zeros(err.shape, bool)
+        if apart.any():
             want = _first_step(opt, old[path], ms[path], vs[path],
                                met["lr"], path in decay)
-            moved = np.abs(new[path] - want)[near]
-            assert float(moved.max(initial=0)) <= _tol(r), path
-            err = err[~near]
+            moved = np.abs(new[path] - want)[apart]
+            assert float(moved.max()) <= _tol(r), path
+            err = err[~apart]
         assert float(err.max(initial=0)) <= _tol(r), path
     for key, mult in (("m", 1), ("v", 2)):
         got = {k: v.double().numpy()
@@ -457,8 +519,24 @@ def test_cli_runs_and_resumes(tmp_path):
     assert "[train] step     4" in again.stdout
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_trainer_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match=r"§A9 \(iii\)"):
-        train.main(["--arch", arch, "--smoke", "--device", "cpu",
-                    "--steps", "1"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-2b"])
+def test_encdec_and_mrope_checkpoints_resume_across_packages(
+        tmp_path, monkeypatch, ref_bf16_restore, arch):
+    """whisper (the frames both trainers draw from `default_rng(0)`, the
+    encoder stacked under `enc.blk`, `pos_emb`) and qwen2-vl (positions
+    0..seq-1 in all three streams): the port's checkpoint holds the
+    reference trainer's tree, and resumed in either package from the
+    port's step 2 the final losses agree within 1e-4."""
+    with monkeypatch.context() as mp:
+        _crash_at(mp, pipeline, 2)
+        with pytest.raises(_Crash):
+            train.main(_argv(tmp_path / "p", arch=arch, device="cpu"))
+    rtrain.main(_argv(tmp_path / "layout", steps=2, arch=arch))
+    p, r = _arrays(tmp_path / "p", 2), _arrays(tmp_path / "layout", 2)
+    assert sorted(p) == sorted(r)
+    assert all(p[k].shape == r[k].shape and p[k].dtype == r[k].dtype
+               for k in p)
+    shutil.copytree(tmp_path / "p", tmp_path / "r")
+    port = train.main(_argv(tmp_path / "p", arch=arch, device="cpu"))
+    ref = rtrain.main(_argv(tmp_path / "r", arch=arch))
+    assert abs(port - ref) <= 1e-4, (port, ref)
