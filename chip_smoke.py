@@ -208,8 +208,8 @@ Phases, each printing one JSON line:
      LM_JAMBA_LAYERS = 16 layers (25.79 B parameters): prefill_32k at
      LM_JAMBA_PREFILL_B requests (by memory; 2 wgmma flash launches, both
      held against the plain version, the logits finite before the timed
-     run) and decode_32k (64 flash launches on the prompts), the same
-     fields;
+     run) and decode_32k at 128 requests of LM_JAMBA_DECODE_PROMPT + 64
+     slots (by time; 64 flash launches on the prompts), the same fields;
  30. `lm_encdec_vs_plain`: whisper-large-v3 (2 encoder and 2 decoder
      layers, with frames) and qwen2-vl-2b (2 layers, over (3, B, S)
      M-RoPE positions) at full width: bf16 train-mode logits at 4096
@@ -233,16 +233,29 @@ Phases, each printing one JSON line:
      (1.54 B parameters) over video-like (3, B, S) positions: prefill_32k
      at LM_QWEN_VL_PREFILL_B requests (28 wgmma flash launches) and
      decode_32k, the fields of phases 20 and 21;
+ 25b. `main_lm_mesh` (inside phase 25, on its model): olmoe-1b-7b's
+     weights through a one-rank NCCL group and `compat_mesh((1, 1),
+     ("data", "model"))`, distributed by `param_shardings`, under the
+     LM_MESH_LAYOUTS tp and ep: a prefill of LM_MESH_B x 32,768 through
+     `make_prefill_step(cfg, ctx)` and LM_MESH_DECODE greedy steps
+     through `make_decode_step(cfg, ctx)`, last-position logits and
+     tokens bit for bit the ctx=None path's on the same weights, 16
+     wgmma flash launches a prefill on the rank's heads; `prefill_s`,
+     `step_ms` with and without the ctx, CommDebugMode's counts;
+ 32b. `dryrun_host` (after phase 32's training ones): `python -m
+     repro_torch.launch.dryrun` for llama3-8b at DRYRUN_HOST_CELLS on the
+     single-pod mesh in a subprocess on the CPU (a fake 256-rank group):
+     each record's memory, collectives, roofline terms and seconds;
  33. `{"phase": "wall"}`: the script's wall seconds so far; then
      `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
      per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
      one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
-     olmoe-1b-7b, 2 for jamba at 16 layers, 28 for qwen2-vl-2b, 64 for
-     whisper-large-v3 with its encoder, 0 for MLA and RWKV6), 2 per
-     layer per microbatch of a train step), its error against the plain
-     version and its times beside its bound.
+     olmoe-1b-7b, through the mesh too, 2 for jamba at 16 layers, 28 for
+     qwen2-vl-2b, 64 for whisper-large-v3 with its encoder, 0 for MLA and
+     RWKV6), 2 per layer per microbatch of a train step), its error
+     against the plain version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
 raises and the script exits non-zero without it. Imports nothing of JAX.
@@ -469,8 +482,10 @@ FLIP_SHARE_MAX = 0.1
 #   product (2.35 GB each), ~9.4 GB a request above the weights, beside
 #   ~5 GB of a Mamba layer's (S, 8192) activations: 2 requests peak near
 #   73 GB of the card's 85.0, 3 near 83 GB.
-# - decode_32k: jamba as llama3-8b's, 128 requests of 3,072 + 64 slots
-#   (1.03 GB of state and 3.29 GB of K/V); rwkv6-3b 128 requests of
+# - decode_32k: jamba 128 requests of LM_JAMBA_DECODE_PROMPT + 64 slots,
+#   by time (its 3,072-token prompts took ~51 s of the script, which
+#   main_lm_mesh and dryrun_host needed; at 1,024 its Mamba layers'
+#   1.03 GB of state are unchanged, its K/V 1.10 GB); rwkv6-3b 128 requests of
 #   LM_RWKV_DECODE_PROMPT + 64 tokens, by time: its step reads and writes
 #   the same 2.73 GB of state at any context, and its 3,072-token prompts
 #   took 63.7 s of the script (a Python loop of 48 chunk steps a layer a
@@ -481,7 +496,7 @@ FLIP_SHARE_MAX = 0.1
 #   jamba also in bf16 at 4096 (the capacity regime).
 LM_RWKV_ARCH, LM_JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
 LM_RWKV_PREFILL_B, LM_JAMBA_PREFILL_B, LM_JAMBA_LAYERS = 4, 2, 16
-LM_RWKV_DECODE_PROMPT = 1024
+LM_RWKV_DECODE_PROMPT = LM_JAMBA_DECODE_PROMPT = 1024
 LM_SSM_LAYERS = {LM_RWKV_ARCH: 2, LM_JAMBA_ARCH: 5}
 LM_SSM_F32_S, LM_SSM_DECODE, LM_SSM_PLAIN_S = 1024, 64, 4096
 # chunk-size invariance, f32: max|d| <= 2e-3 max|logits|, the reference's
@@ -527,6 +542,17 @@ LM_WHISPER_PREFILL_B, LM_QWEN_VL_PREFILL_B = 4, 8
 LM_WHISPER_PROMPT = 1536
 LM_ENCDEC_LAYERS, LM_ENCDEC_F32_S, LM_ENCDEC_DECODE = 2, 1024, 64
 LM_ENCDEC_PLAIN_S = 4096
+
+# main_lm_mesh (ROADMAP.md §A9 (iv)): olmoe-1b-7b's full-width weights of
+# main_lm_moe (16 layers) through a one-rank NCCL group and a (1, 1)
+# ("data", "model") mesh, under the tp and ep layouts: a prefill of
+# LM_MESH_B x 32,768 tokens, then LM_MESH_DECODE greedy steps from its
+# cache, each bit for bit the ctx=None path on the same weights (on one
+# rank every collective is an identity). dryrun_host traces llama3-8b's
+# prefill_32k and decode_32k on the fake 256-rank single-pod mesh.
+LM_MESH_B, LM_MESH_DECODE = 2, 16
+LM_MESH_LAYOUTS = ("tp", "ep")
+DRYRUN_HOST_CELLS = ("prefill_32k", "decode_32k")
 FRAMES_SCALE = 0.02       # the reference trainer's frames (launch/train.py:78)
 
 # The training path (ROADMAP.md §A9 (ii)): train_4k (configs/base.py:166)
@@ -3643,10 +3669,11 @@ def phase_lm_vs_plain() -> dict:
 
 def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
                 prefill_b: int, seed: int, layers: int | None = None,
-                prompt: int = LM_DECODE_PROMPT) -> dict:
+                prompt: int = LM_DECODE_PROMPT, then=None) -> dict:
     """One model at its published width and depth (or `layers` deep),
     built once on the card from `seed` for its prefill and decode phases
-    (decode over prompts of `prompt` tokens), then freed."""
+    (decode over prompts of `prompt` tokens), and `then(model, cfg)`
+    where given, then freed."""
     import torch
 
     from repro_torch import configs
@@ -3665,12 +3692,14 @@ def _lm_serving(arch: str, prefill_phase: str, decode_phase: str,
     torch.cuda.empty_cache()
     dec = phase_lm_decode(model, cfg, phase=decode_phase, seed=seed + 2,
                           prompt=prompt)
+    torch.cuda.empty_cache()
+    after = then(model, cfg) if then is not None else None
     del model
     torch.cuda.empty_cache()
     emit({"phase": "lm_model", "arch": cfg.name, "layers": cfg.n_layers,
           "build_s": build_s, "weight_bytes": weights})
     return {"prefill": pre, "decode": dec, "build_s": build_s,
-            "weight_bytes": weights}
+            "weight_bytes": weights, "then": after}
 
 
 def phase_lm() -> dict:
@@ -4426,7 +4455,7 @@ def _one_train_step(cfg, batch, mb: int, seed: int, swap=None) -> dict:
     old = {k: p.detach().float() for k, p in adamw.leaves(model).items()}
     state = adamw.init_state(model)
     with swap if swap is not None else contextlib.nullcontext():
-        _, state, met = steps.make_train_step(cfg, _train_opt(),
+        _, state, met = steps.make_train_step(cfg, None, _train_opt(),
                                               microbatches=mb)(
             model, state, batch)
     torch.cuda.synchronize()
@@ -4561,7 +4590,7 @@ def phase_lm_train() -> dict:
     state = adamw.init_state(model)
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated()
-    step = steps.make_train_step(cfg, _train_opt(), microbatches=mb)
+    step = steps.make_train_step(cfg, None, _train_opt(), microbatches=mb)
     batches = [_train_batch(cfg, b, s, i, SEED + 49)
                for i in range(LM_TRAIN_STEPS + 2)]
     sample = {k: p.detach()[tuple(slice(0, 64) for _ in p.shape)].clone()
@@ -4740,6 +4769,254 @@ def phase_lm_train_cli() -> dict:
     return out
 
 
+def _mesh_path(cfg, model, tokens, n: int, ctx) -> dict:
+    """One prefill of `tokens` through `make_prefill_step(cfg, ctx)`, its
+    cache copied into one of S + n slots, then n greedy decode steps
+    through `make_decode_step(cfg, ctx)`: the last-position logits, the
+    tokens, the launch counts of the prefill and of the decode, and their
+    times. With a ctx the logits are gathered whole (one rank: a copy)."""
+    import torch
+
+    from repro_torch.models import steps, transformer
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    b, s = tokens.shape
+    pre = steps.make_prefill_step(cfg, ctx)
+    dec = steps.make_decode_step(cfg, ctx)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lg, cache = pre(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_counts = read_counts()
+    big = transformer.init_cache(cfg, model, b, s + n, ctx=ctx)
+    for layer, pc in zip(big, cache):
+        for key, t in pc.items():
+            local(layer[key])[:, :s] = local(t)
+    del cache
+    logits = [whole(lg)[:, -1].float()]
+    toks = [steps.greedy_next(whole(lg))]
+    reset_counts()
+    ms = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, big = dec(model, big, {"tokens": toks[-1], "cache_len": s + i})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(whole(lg)[:, -1].float())
+        toks.append(steps.greedy_next(whole(lg)))
+    dec_counts = read_counts()
+    del big
+    return {"logits": torch.stack(logits), "tokens": torch.cat(toks, 1),
+            "prefill_s": prefill_s, "step_ms": float(np.median(ms)),
+            "step_ms_max": max(ms), "prefill_counts": pre_counts,
+            "decode_counts": dec_counts}
+
+
+def phase_lm_mesh(model, cfg, seed: int = SEED + 150) -> dict:
+    """main_lm_mesh: olmoe-1b-7b's full-width model (main_lm_moe's
+    weights, 16 layers) served through the mesh tooling on one card: a
+    one-rank NCCL group, `compat_mesh((1, 1), ("data", "model"))`, the
+    weights distributed by `param_shardings`, then under the tp and ep
+    layouts a prefill of LM_MESH_B x 32,768 tokens through
+    `make_prefill_step(cfg, ctx)` and LM_MESH_DECODE greedy decode steps
+    from its cache through `make_decode_step(cfg, ctx)`. Each holds its
+    last-position logits and greedy tokens against the ctx=None path on
+    the same weights BIT FOR BIT (one rank: every collective is an
+    identity, so a difference is a fault), and its prefill launches the
+    flash kernel once a layer on the rank's heads. `prefill_s` and
+    `step_ms` with and without the ctx give the DTensor dispatch cost
+    (each path warmed first); CommDebugMode counts the collectives of a
+    2 x 4,096 prefill. Under each layout one train step of the smoke
+    config also runs through the mesh (`_mesh_train`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import steps
+
+    b, s, n = LM_MESH_B, LM_PREFILL_S, LM_MESH_DECODE
+    rng = np.random.default_rng(seed)
+    tokens = _lm_tokens(rng, cfg, b, s)
+    steps.make_prefill_step(cfg)(model, {"tokens": tokens})   # warm-up
+    torch.cuda.empty_cache()
+    plain = _mesh_path(cfg, model, tokens, n, None)
+    torch.cuda.empty_cache()
+    mesh = lmesh.compat_mesh((1, 1), ("data", "model"))
+    out = {"phase": "main_lm_mesh", "arch": cfg.name,
+           "card": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
+           "layers": cfg.n_layers, "batch": b, "seq_len": s,
+           "decode_steps": n, "backend": dist.get_backend(),
+           "mesh": {"shape": list(mesh.mesh.shape),
+                    "axes": list(mesh.mesh_dim_names)},
+           "plain": {k: plain[k] for k in ("prefill_s", "step_ms",
+                                           "step_ms_max")}}
+    saved = {k: p for k, p in model.named_parameters()}
+    try:
+        for layout in LM_MESH_LAYOUTS:
+            ctx = sh.make_ctx(mesh, cfg, None, layout=layout)
+            sh.distribute_params(model, mesh, cfg, ctx.rules)
+            # a short prefill first, counted by CommDebugMode, warms the
+            # path (NCCL builds its communicator at the first collective)
+            with CommDebugMode() as comm:
+                steps.make_prefill_step(cfg, ctx)(
+                    model, {"tokens": tokens[:, :4096]})
+            pre_comm = {str(k): v for k, v in
+                        comm.get_comm_counts().items()}
+            got = _mesh_path(cfg, model, tokens, n, ctx)
+            torch.cuda.empty_cache()
+            same_logits = torch.equal(got["logits"], plain["logits"])
+            same_tokens = torch.equal(got["tokens"], plain["tokens"])
+            check(same_logits and same_tokens,
+                  f"{layout}: logits or tokens differ from ctx=None "
+                  f"({(got['logits'] - plain['logits']).abs().max()})")
+            check(got["prefill_counts"]["flash_attn"] == cfg.n_layers
+                  and got["prefill_counts"]["flash_attn_routes"]
+                  == {"wgmma": cfg.n_layers, "fma": 0},
+                  f"{layout} prefill launches {got['prefill_counts']}")
+            out[layout] = {
+                "logits_bitwise": same_logits, "tokens_bitwise": same_tokens,
+                "prefill_s": got["prefill_s"], "step_ms": got["step_ms"],
+                "step_ms_max": got["step_ms_max"],
+                "prefill_s_ratio": got["prefill_s"] / plain["prefill_s"],
+                "step_ms_ratio": got["step_ms"] / plain["step_ms"],
+                "counts": got["prefill_counts"],
+                "flash_launches": got["prefill_counts"]["flash_attn"],
+                "decode_counts": got["decode_counts"],
+                "comm_counts_prefill_4096": pre_comm,
+                "rules_experts": ctx.rules.get("experts"),
+                "rules_mlp": ctx.rules.get("mlp")}
+            _undistribute(model, saved)    # plain again for the next one
+            out[layout]["train"] = _mesh_train(mesh, layout, seed)
+    finally:
+        _undistribute(model, saved)
+        dist.destroy_process_group()
+    emit(out)
+    return out
+
+
+def _mesh_train(mesh, layout: str, seed: int) -> dict:
+    """One train step of LM_MOE_ARCH's smoke config (f32 weights drawn on
+    the card) through `make_train_step(cfg, ctx, opt)` on the one-rank
+    mesh against ctx=None on the same weights and tokens, at one warmup
+    step (the full lr): loss and grad norm within 1e-5 relative, and the
+    update applied to the sharded leaves: every weight's step within 1%
+    of ctx=None's largest step where AdamW's first step is well
+    conditioned (ctx=None's gradient at least 10 eps), and within 10%
+    everywhere."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_smoke(LM_MOE_ARCH)
+    opt = adamw.AdamWConfig(warmup_steps=1)
+    rng = np.random.default_rng(seed + 1)
+    batch = {"tokens": _lm_tokens(rng, cfg, 4, 16),
+             "labels": _lm_tokens(rng, cfg, 4, 16)}
+
+    def model():
+        m = _lm_model(cfg, seed)
+        for q in m.parameters():
+            q.data = q.data.float()
+        return m
+
+    m0, m1 = model(), model()
+    init = {k: q.detach().clone() for k, q in m0.named_parameters()}
+    st0 = adamw.init_state(m0)
+    _, _, met0 = steps.make_train_step(cfg, None, opt)(m0, st0, batch)
+    ctx = sh.make_ctx(mesh, cfg, None, layout=layout)
+    sh.distribute_params(m1, mesh, cfg, ctx.rules)
+    st1 = adamw.init_state(m1)
+    _, _, met1 = steps.make_train_step(cfg, ctx, opt)(m1, st1, batch)
+    p0 = dict(m0.named_parameters())
+    m_flat = {}
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat(v, f"{prefix}{k}.")
+            else:
+                m_flat[f"{prefix}{k}"] = v
+
+    flat(st0["m"])
+    step = max(float((q.detach() - init[k]).abs().max())
+               for k, q in p0.items())
+    err = worst = 0.0
+    for k, q in m1.named_parameters():
+        d = (q.detach().full_tensor() - p0[k].detach()).abs()
+        worst = max(worst, float(d.max()))
+        keep = (m_flat[k] / (1 - opt.beta1)).abs() >= 10 * opt.eps
+        if keep.any():
+            err = max(err, float(d[keep].max()))
+    l0, l1 = float(met0["loss"]), float(met1["loss"].full_tensor())
+    g0 = float(met0["grad_norm"])
+    g1 = float(met1["grad_norm"].full_tensor())
+    check(abs(l1 - l0) <= 1e-5 * (1 + abs(l0))
+          and abs(g1 - g0) <= 1e-5 * (1 + abs(g0)),
+          f"{layout} train: loss {l1} vs {l0}, grad norm {g1} vs {g0}")
+    check(step > 1e-4 and err <= 1e-2 * step and worst <= 0.1 * step,
+          f"{layout} train: update {err} / {worst} against a step of "
+          f"{step}")
+    return {"arch": cfg.name, "loss": [l0, l1], "grad_norm": [g0, g1],
+            "max_step": step, "update_err": err, "param_err": worst}
+
+
+def _undistribute(model, saved: dict) -> None:
+    """Put the model's plain parameters back (the DTensors share their
+    storage, so nothing is copied)."""
+    for path, p in saved.items():
+        *mods, name = path.split(".")
+        mod = model
+        for m in mods:
+            mod = mod[int(m)] if m.isdigit() else getattr(mod, m)
+        mod._parameters[name] = p
+
+
+def phase_dryrun_host() -> dict:
+    """dryrun_host: `repro_torch.launch.dryrun.run_cell` in one subprocess
+    (the CPU, a fake 256-rank group) for llama3-8b at DRYRUN_HOST_CELLS
+    on the single-pod mesh; each record's memory per rank, collectives,
+    roofline terms (the H100's rates) and its seconds to build and
+    trace."""
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    code = ("import sys; from repro_torch.launch import dryrun; "
+            "[dryrun.run_cell('llama3-8b', s, False, sys.argv[1], "
+            "force=True) for s in sys.argv[2:]]")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-W", "ignore", "-c", code, out_dir,
+         *DRYRUN_HOST_CELLS],
+        env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"dryrun: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    recs = {}
+    for shape in DRYRUN_HOST_CELLS:
+        with open(os.path.join(out_dir,
+                               f"llama3-8b__{shape}__single.json")) as f:
+            r = json.load(f)
+        check(r.get("ok"), f"dryrun {shape}: {r.get('error')}")
+        recs[shape] = {k: r[k] for k in ("memory", "collectives_raw",
+                                         "roofline", "timings")}
+    out = {"phase": "dryrun_host", "arch": "llama3-8b", "mesh": "single",
+           "cells": recs, "wall_s": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4774,7 +5051,9 @@ def main() -> None:
     moe_plain = phase_lm_moe_vs_plain()
     torch.cuda.empty_cache()
     lm_moe = _lm_serving(LM_MOE_ARCH, "main_lm_moe", "main_lm_moe",
-                         LM_MOE_PREFILL_B, SEED + 60)
+                         LM_MOE_PREFILL_B, SEED + 60, then=phase_lm_mesh)
+    lm_mesh = lm_moe["then"]
+    torch.cuda.empty_cache()
     lm_mla = _lm_serving(LM_MLA_ARCH, "main_lm_mla", "main_lm_mla",
                          LM_MLA_PREFILL_B, SEED + 70)
     ssm_plain = phase_lm_ssm_vs_plain()
@@ -4784,7 +5063,8 @@ def main() -> None:
                           prompt=LM_RWKV_DECODE_PROMPT)
     lm_jamba = _lm_serving(LM_JAMBA_ARCH, "main_lm_jamba", "main_lm_jamba",
                            LM_JAMBA_PREFILL_B, SEED + 100,
-                           layers=LM_JAMBA_LAYERS)
+                           layers=LM_JAMBA_LAYERS,
+                           prompt=LM_JAMBA_DECODE_PROMPT)
     encdec_plain = phase_lm_encdec_vs_plain()
     torch.cuda.empty_cache()
     lm_whisper = _lm_serving(LM_WHISPER_ARCH, "main_lm_whisper",
@@ -4796,6 +5076,7 @@ def main() -> None:
     phase_lm_train_vs_plain()
     tr = phase_lm_train()
     cli = phase_lm_train_cli()
+    phase_dryrun_host()
     new_paths = {"matrix_profile_topk": tk, "ab_join_rowstream": rs,
                  "batch": bt,
                  "matrix_profile_nonnorm": {"counts": nn["counts"]["self"]},
@@ -4826,7 +5107,11 @@ def main() -> None:
                  "lm_whisper_decode": lm_whisper["decode"],
                  "lm_qwen2vl_prefill": lm_qwen_vl["prefill"],
                  "lm_qwen2vl_decode": lm_qwen_vl["decode"],
-                 "lm_train": tr, "lm_train_cli": cli}
+                 "lm_train": tr, "lm_train_cli": cli,
+                 **{f"lm_mesh_{lay}_{ph}": {"counts": lm_mesh[lay][key]}
+                    for lay in LM_MESH_LAYOUTS
+                    for ph, key in (("prefill", "counts"),
+                                    ("decode", "decode_counts"))}}
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4866,7 +5151,10 @@ def main() -> None:
                                      lm_whisper, lm_qwen_vl)
                            for ph in ("prefill", "decode"))
                      + tr["counts"]["flash_attn"]
-                     + cli["counts"]["flash_attn"]),
+                     + cli["counts"]["flash_attn"]
+                     + sum(lm_mesh[lay][key]["flash_attn"]
+                           for lay in LM_MESH_LAYOUTS
+                           for key in ("counts", "decode_counts"))),
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
                              "ab_join": ab["counts"]["flash_attn"],
                              "flash_attention": fl["launches"],
@@ -4894,6 +5182,10 @@ def main() -> None:
             "batch", "flash_launches", "flash_ms_in_model",
             "flash_ms_encoder", "flash_ms_per_layer", "flash_share",
             "prefill_s", "bound_s")},
+        "lm_mesh": {lay: {f: lm_mesh[lay][f] for f in (
+            "flash_launches", "prefill_s", "step_ms", "prefill_s_ratio",
+            "step_ms_ratio", "logits_bitwise", "tokens_bitwise")}
+            for lay in LM_MESH_LAYOUTS},
         "lm_whisper_decode": {f: lm_whisper["decode"][f] for f in (
             "encode_s", "counts", "launches_by_route")},
         "lm_qwen2vl_prefill": {f: lm_qwen_vl["prefill"][f] for f in (

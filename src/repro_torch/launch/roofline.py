@@ -13,8 +13,10 @@ definition. `RooflineTerms` carries the peak its FLOPs run at
 (`peak_flops`, a field the reference lacks): the NATSA sweep is f32
 arithmetic on CUDA cores, so `matrix_profile_roofline` divides its FLOPs
 by `FP32_PEAK`, where the reference divides every term by one bf16 peak
-(ROADMAP.md §C (23)). The HLO collective parser, the XLA lowering smoke
-and the TPU VMEM model have no counterpart here (§C (23)).
+(ROADMAP.md §C (23)). `Collective` carries the reference's ring-cost
+wire formula for the collectives the dry-run traces (`launch.dryrun`);
+the HLO collective parser, the XLA lowering smoke and the TPU VMEM model
+have no counterpart here (§C (23), (25)).
 """
 
 from __future__ import annotations
@@ -50,6 +52,31 @@ def shape_bytes(shape_str: str) -> int:
                 n *= int(d)
         total += n * _DTYPE_BYTES[dt]
     return total
+
+
+@dataclasses.dataclass
+class Collective:
+    """One collective: its kind (all-reduce, all-gather, reduce-scatter,
+    all-to-all, collective-permute), result bytes and group size; wire
+    bytes by ring cost: all-reduce 2(n-1)/n, all-gather and all-to-all
+    (n-1)/n of the result, reduce-scatter (n-1) of its shard, a permute
+    its bytes."""
+    kind: str
+    result_bytes: int
+    group: int
+
+    @property
+    def wire_bytes(self) -> float:
+        n = max(self.group, 2)
+        if self.kind == "all-reduce":
+            return 2 * self.result_bytes * (n - 1) / n
+        if self.kind == "all-gather":
+            return self.result_bytes * (n - 1) / n
+        if self.kind == "reduce-scatter":
+            return self.result_bytes * (n - 1)      # result is the shard
+        if self.kind == "all-to-all":
+            return self.result_bytes * (n - 1) / n
+        return float(self.result_bytes)             # collective-permute
 
 
 @dataclasses.dataclass

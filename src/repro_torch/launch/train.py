@@ -95,7 +95,7 @@ def main(argv=None):
         final_loss = meta.get("loss", final_loss)
         print(f"[train] resumed from step {start_step}")
 
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg,
+    step_fn = steps_lib.make_train_step(cfg, None, opt_cfg,
                                         microbatches=args.microbatches)
 
     monitors = {

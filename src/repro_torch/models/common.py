@@ -5,9 +5,17 @@ A parameter tree is a nested dict whose leaves are `ParamSpec`s (shapes,
 logical axes, init rule, dtype); `init_params` draws it from a
 `torch.Generator` on the generator's device, and `ParamTree` holds such a
 tree as an `nn.Module` whose `nn.Parameter`s carry the tree's keys, so
-`p["wq"]["w"]` reads as in the reference. The logical axes are kept for
-the sharding rules, which come with a mesh (ROADMAP.md §A9 (iv)); no rule
-table is ported yet.
+`p["wq"]["w"]` reads as in the reference.
+
+Sharding rules (t5x style, as the reference's): each leaf names a LOGICAL
+axis per dim, and a rule table maps logical axes to mesh axes, so another
+layout (FSDP, expert parallelism) is a table swap, not a model rewrite.
+torch has no `PartitionSpec`; `PartitionSpec` here is a tuple with one
+entry per tensor dim (a mesh axis name, a tuple of them, or None), and
+`placements` turns (mesh, spec) into the DTensor placements of a
+`DeviceMesh` — the counterpart of the reference's `NamedSharding`. A tuple
+entry such as ("pod", "data") shards one tensor dim over several mesh
+dims in mesh order, as JAX does.
 """
 
 from __future__ import annotations
@@ -18,6 +26,120 @@ from typing import Any
 
 import torch
 from torch import nn
+
+# ---------------------------------------------------------------------------
+# sharding rules
+
+
+# default TP rules: the model axis carries heads / mlp / vocab; everything
+# else replicated. "data"/"pod" only shard the batch (activations).
+TP_RULES: dict[str, Any] = {
+    "vocab": "model",
+    "mlp": "model",
+    "heads": "model",
+    "experts": None,
+    "embed": None,
+    # KV caches shard over "model" on kv_heads when divisible, else on
+    # head_dim (the sanitizer's first-wins / divisibility rules arbitrate)
+    "kv_heads": "model",
+    "head_dim": "model",
+    "kv_lora": "model",   # MLA latent: weights TP + cache sharded
+    "q_lora": None,
+    "conv": None,
+    "state": None,
+    "layers": None,
+    "null": None,
+}
+
+# FSDP variant: weights additionally sharded over the data axis on their
+# non-TP dim, gathered per use (ZeRO-3 style).
+FSDP_RULES = dict(TP_RULES, embed="data", experts="data")
+
+# expert-parallel variant: experts over the model axis, per-expert mlp
+# unsharded.
+EP_RULES = dict(TP_RULES, experts="model", mlp=None)
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh axis name, a tuple of names, or
+    None (replicated); dims past its length are replicated. A tuple, so
+    it compares equal to the reference's `PartitionSpec` entry for entry
+    (`tuple(P(...))`); a one-name tuple entry becomes the name, as JAX's
+    does."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def logical_to_pspec(axes: tuple[str, ...], rules) -> PartitionSpec:
+    return P(*[rules.get(a, None) for a in axes])
+
+
+def sanitize_pspec(shape: tuple, pspec, mesh) -> PartitionSpec:
+    """Drop mesh axes from dims they do not divide and drop repeated axis
+    uses (first dim wins). Reads only the mesh's axis sizes (`mesh_shape`),
+    so a stub with a `shape` dict serves as well as a `DeviceMesh`."""
+    sizes = mesh_shape(mesh)
+    out = []
+    used: set = set()
+    for dim, axes in zip(shape,
+                         tuple(pspec) + (None,) * (len(shape) - len(pspec))):
+        if axes is None:
+            out.append(None)
+            continue
+        ax_tuple = axes if isinstance(axes, tuple) else (axes,)
+        if any(a in used for a in ax_tuple):
+            out.append(None)
+            continue
+        size = 1
+        for a in ax_tuple:
+            size *= sizes[a]
+        if dim % size == 0:
+            out.append(axes)
+            used.update(ax_tuple)
+        else:
+            out.append(None)
+    return P(*out)
+
+
+def sanitized_pspecs(spec_tree, rules, mesh):
+    """Tree of sanitized PartitionSpecs for a ParamSpec tree."""
+    return tree_map(lambda s: sanitize_pspec(
+        s.shape, logical_to_pspec(s.axes, rules), mesh), spec_tree)
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a `DeviceMesh` (or of anything with a `shape`
+    dict, as the sanitizer's stub meshes)."""
+    if isinstance(getattr(mesh, "shape", None), dict):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def placements(mesh, pspec) -> tuple:
+    """DTensor placements of `pspec` on a `DeviceMesh`: one per mesh dim,
+    `Shard(d)` where tensor dim d names the mesh dim (alone or in a
+    tuple, which DTensor shards in mesh order, as JAX does), else
+    `Replicate()`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(pspec):
+        if axes is None:
+            continue
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
 
 # ---------------------------------------------------------------------------
 # param specs
@@ -65,6 +187,17 @@ def tree_nest(flat: dict) -> Tree:
 def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def tree_pspecs(spec: Tree, rules) -> Tree:
+    return tree_map(lambda s: logical_to_pspec(s.axes, rules), spec)
+
+
+def tree_shapes(spec: Tree) -> Tree:
+    """`meta` tensors of each leaf's shape and dtype (the reference's
+    `ShapeDtypeStruct`s)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec)
 
 
 def _init_leaf(gen: torch.Generator, s: ParamSpec) -> torch.Tensor:

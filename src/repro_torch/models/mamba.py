@@ -1,6 +1,13 @@
 """Mamba-1 selective SSM block (for the Jamba hybrid) — port of
-`repro.models.mamba` on one device (no sharding context: the reference's
-batch pins are GSPMD constraints, ROADMAP.md §A9 (iv)).
+`repro.models.mamba`.
+
+Under a sharding context the block runs on one rank's shards inside the
+layer's `local_map`, the inner dim d_in split over the model dim (the
+scan reduces over none of it): `in_proj`, the conv, `dt_w` and the state
+on the rank's channels; the x_proj product partial over them and summed
+by one all-reduce (whose gradient is summed too: every rank reads it);
+the output partial through `out_proj`'s row shard. The reference's batch
+pins (`anchor`) are GSPMD constraints; a local shard keeps its batch.
 
 Train and prefill run the chunked selective scan: within a chunk the
 recurrence h_t = Abar_t h_{t-1} + dBx_t is an associative scan over the
@@ -56,12 +63,14 @@ def _in_proj(p: Tree, x):
     return xz[..., :di], xz[..., di:]
 
 
-def _ssm_params(cfg, p: Tree, u):
+def _ssm_params(cfg, p: Tree, u, lc=None):
     """u: (B, T, di) post-conv activations -> (dt, Bmat, Cmat) f32."""
     d = cfg.d_model
     n = cfg.mamba_d_state
     dt_rank = -(-d // 16)
     xdbc = matmul(u, p["x_proj"])                            # (B,T,rank+2N)
+    if lc is not None and lc.sharded:
+        xdbc = lc.reduce(xdbc, both=True)
     dt_low = xdbc[..., :dt_rank]
     bmat = xdbc[..., dt_rank:dt_rank + n].float()
     cmat = xdbc[..., dt_rank + n:].float()
@@ -103,11 +112,13 @@ def _chunk_ssm(dt, bmat, cmat, u, a, h0):
 
 
 def mamba_full(cfg, p: Tree, x, *, chunk: int = 256, state=None,
-               conv_state=None, return_state: bool = False):
+               conv_state=None, return_state: bool = False, ctx=None):
     """x: (B, S, D) -> (B, S, D). Causal conv + selective scan. With
-    `return_state`: (out, state (B, di, N) f32, conv window (B, kc-1, di))."""
+    `return_state`: (out, state (B, di, N) f32, conv window (B, kc-1, di)).
+    `ctx` is the block's `parallel.Local` on one rank's shards (None: one
+    device)."""
     b, s, d = x.shape
-    di = cfg.mamba_expand * d
+    di = p["in_proj"].shape[-1]
     n = cfg.mamba_d_state
     kc = cfg.mamba_conv
 
@@ -119,7 +130,7 @@ def mamba_full(cfg, p: Tree, x, *, chunk: int = 256, state=None,
     u = sum(xpad[:, i:i + s] * p["conv_w"][i].to(x.dtype) for i in range(kc))
     u = F.silu(u + p["conv_b"].to(x.dtype))
 
-    dt, bmat, cmat = _ssm_params(cfg, p, u)
+    dt, bmat, cmat = _ssm_params(cfg, p, u, ctx)
     a = -torch.exp(p["a_log"])                               # (di,N) < 0
 
     if state is None:
@@ -142,7 +153,7 @@ def mamba_full(cfg, p: Tree, x, *, chunk: int = 256, state=None,
     return out
 
 
-def mamba_step(cfg, p: Tree, x, state, conv_state):
+def mamba_step(cfg, p: Tree, x, state, conv_state, lc=None):
     """Decode step. x: (B,1,D); state: (B,di,N) f32; conv_state:
     (B,kc-1,di). Writes `state` and `conv_state` in place and returns
     them."""
@@ -154,7 +165,7 @@ def mamba_step(cfg, p: Tree, x, state, conv_state):
     u = F.silu(u + p["conv_b"].to(x.dtype))                  # (B,1,di)
     conv_state.copy_(xwin[:, 1:])
 
-    dt, bmat, cmat = _ssm_params(cfg, p, u)
+    dt, bmat, cmat = _ssm_params(cfg, p, u, lc)
     a = -torch.exp(p["a_log"])
     abar = torch.exp(dt[:, 0, :, None] * a)                  # (B,di,N)
     dbx = (dt[:, 0] * u[:, 0].float())[..., None] * bmat[:, 0, None, :]

@@ -21,6 +21,18 @@ shift (`state`, `x_prev`) IN PLACE and returns those tensors, where the
 reference returns new arrays, as `attention.gqa_decode` does with K/V
 (ROADMAP.md §C (16)).
 
+Under a sharding context the mixers run on one rank's shards inside the
+layer's `local_map` (each function's `lc`): time mixing on the heads the
+rank's `wo` rows read (`_span`: its own where the heads split evenly,
+else the two or three that overlap its rows, their r, k, v, g columns
+fetched from the ranks' column shards by `Local.exchange`), the decay
+and the head norm's weights sliced to those channels, the output partial
+through `wo`'s row shard; where the heads do not split, the cache splits
+the state's key dim (`_state_layout`; decode sums r's product over the
+ranks' slices). Channel mixing runs k through its column shard, the
+partial `kk @ wv` reduce-scattered onto the rank's channels, gated there
+by r's column shard, and the result all-gathered whole.
+
 Casts follow the reference's: r, k, v and the log decays in f32 (the
 decay LoRA's products too), the mixing weights in the activation dtype,
 the head group norm in f32.
@@ -84,15 +96,20 @@ def _ddlerp(p: Tree, x, sx):
             for c in range(5)]
 
 
-def _head_groupnorm(p: Tree, o, h: int, k: int, eps: float = 64e-5):
+def _head_groupnorm(p: Tree, o, h: int, k: int, eps: float = 64e-5,
+                    span=None):
     """Per-head LayerNorm over the value dim (RWKV's GroupNorm(H)), in f32
-    with the population variance (jnp.var's)."""
+    with the population variance (jnp.var's); on a rank's heads, the
+    channels [c0, c1) of the scale and bias (`span`)."""
     b, t, d = o.shape
-    of = o.reshape(b, t, h, k).float()
+    of = o.reshape(b, t, -1, k).float()
     mu = of.mean(-1, keepdim=True)
     var = of.var(-1, keepdim=True, correction=0)
     of = (of - mu) * torch.rsqrt(var + eps)
-    return of.reshape(b, t, d) * p["ln_scale"] + p["ln_bias"]
+    scale, bias = p["ln_scale"], p["ln_bias"]
+    if scale.shape[0] != d:
+        scale, bias = scale[span[0]:span[1]], bias[span[0]:span[1]]
+    return of.reshape(b, t, d) * scale + bias
 
 
 def _chunk_wkv(r, k, v, logw, u, state):
@@ -122,31 +139,101 @@ def _chunk_wkv(r, k, v, logw, u, state):
     return o_inter + o_intra, new_state
 
 
+def _decay(p: Tree, xw):
+    """The log decays -exp(w0 + tanh(xw wa) wb), f32, every channel."""
+    return -torch.exp(p["w0"].float()
+                      + torch.tanh(xw.float() @ p["wa"].float())
+                      @ p["wb"].float())
+
+
+def _span(p: Tree, d: int, hk: int, lc, rank=None):
+    """(c0, c1, off): the channels [c0, c1) of the heads whose outputs the
+    rank's (or `rank`'s) `wo` rows read, and where those rows start in
+    them; every channel where `wo` is whole."""
+    rows = p["wo"].shape[0]
+    if lc is None or rows == d:
+        return 0, d, 0
+    r0 = (lc.rank if rank is None else rank) * rows
+    c0 = r0 // hk * hk
+    return c0, -(-(r0 + rows) // hk) * hk, r0 - c0
+
+
+def _proj(x, w, d: int, hk: int, lc, spans=None):
+    """x @ w on the rank's columns, and its first channel: every channel
+    where `w` is whole; else the channels [c0, c1) = spans[rank]: the
+    rank's own where its column shard holds just those, else their
+    columns from the ranks' shards (`Local.exchange`). Without `spans`:
+    the rank's heads where the model dim splits them evenly, else every
+    channel, all-gathered."""
+    t = matmul(x, w)
+    if lc is None or t.shape[-1] == d:
+        return t, 0
+    n = t.shape[-1]
+    if spans is None:
+        if (d // hk) % lc.tp == 0:
+            return t, lc.rank * n
+        return lc.gather(t, t.dim() - 1), 0
+    a, b = spans[lc.rank]
+    if b - a == n and a == lc.rank * n:
+        return t, a
+    src = [range(q * n, (q + 1) * n) for q in range(lc.tp)]
+    return lc.exchange(t, src, [range(x0, x1) for x0, x1 in spans]), a
+
+
+def _state_layout(p: Tree, st, h: int, hk: int, lc):
+    """A prefill's final state (B, h_t, K, K) of the rank's heads
+    (`time_mix_full`) in its cache's layout: as it is where the cache
+    splits the heads; where it splits the key dim (heads that do not
+    split evenly), the rank's slice of every head's: each head is taken
+    from the rank whose `wo` rows start in it, and one reduce-scatter over
+    the key dim hands out the slices."""
+    if lc is None or (lc.cache_dims or {}).get("state") != 2:
+        return st
+    d = h * hk
+    if all(_span(p, d, hk, lc, r)[:2] == (0, d) for r in range(lc.tp)):
+        return lc.take(st, 2)
+    rows = p["wo"].shape[0]
+    h0 = _span(p, d, hk, lc)[0] // hk
+    full = st.new_zeros(st.shape[0], h, hk, hk)
+    for j in range(h0, h0 + st.shape[1]):
+        if j * hk // rows == lc.rank:
+            full[:, j] = st[:, j - h0]
+    return lc.scatter(full, 2)
+
+
 def time_mix_full(cfg, p: Tree, x, *, chunk: int = 64,
-                  state=None, x_prev=None, return_state: bool = False):
+                  state=None, x_prev=None, return_state: bool = False,
+                  lc=None):
     """RWKV6 attention over a full sequence. x: (B, S, D). With
-    `return_state`: (out, state (B, H, K, K) f32, x[:, -1:])."""
+    `return_state`: (out, state (B, H, K, K) f32, x[:, -1:]). On a rank's
+    shards: the heads its `wo` rows read (`_span`), their output rows
+    partial through its `wo` shard, and the state of those heads."""
     b, s, d = x.shape
     hk = cfg.rwkv_head_dim
-    h = d // hk
+    c0, c1, off = _span(p, d, hk, lc)
+    spans = (None if lc is None
+             else [_span(p, d, hk, lc, r)[:2] for r in range(lc.tp)])
+    h = (c1 - c0) // hk
     if x_prev is None:
         x_prev = x.new_zeros(b, 1, d)
     sx = torch.cat([x_prev, x[:, :-1]], dim=1) - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx)
     del sx
 
+    def chans(t, first):                         # channels [c0, c1)
+        return t if t.shape[-1] == c1 - c0 else t[..., c0 - first:c1 - first]
+
     def heads(t):                                            # (B,H,S,K) f32
         return t.reshape(b, s, h, hk).transpose(1, 2).float().contiguous()
 
-    r = heads(matmul(xr, p["wr"]))
-    kk = heads(matmul(xk, p["wk"]))
-    v = heads(matmul(xv, p["wv"]))
-    g = F.silu(matmul(xg, p["wg"]))
+    r = heads(chans(*_proj(xr, p["wr"], d, hk, lc, spans)))
+    kk = heads(chans(*_proj(xk, p["wk"], d, hk, lc, spans)))
+    v = heads(chans(*_proj(xv, p["wv"], d, hk, lc, spans)))
+    g = F.silu(chans(*_proj(xg, p["wg"], d, hk, lc, spans)))
     del xk, xv, xr, xg
-    logw = heads(-torch.exp(
-        p["w0"].float()
-        + torch.tanh(xw.float() @ p["wa"].float()) @ p["wb"].float()))
+    logw = heads(chans(_decay(p, xw), 0))
     del xw
+    u = p["u"] if p["u"].shape[0] == h else p["u"][c0 // hk:c1 // hk]
 
     if state is None:
         state = x.new_zeros(b, h, hk, hk, dtype=torch.float32)
@@ -154,62 +241,84 @@ def time_mix_full(cfg, p: Tree, x, *, chunk: int = 64,
     for t0 in range(0, s, chunk):
         at = slice(t0, t0 + chunk)
         o, state = _chunk_wkv(r[:, :, at], kk[:, :, at], v[:, :, at],
-                              logw[:, :, at], p["u"], state)
+                              logw[:, :, at], u, state)
         outs.append(o)
     del r, kk, v, logw
     o = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
     del outs
-    o = o.transpose(1, 2).reshape(b, s, d)
-    o = _head_groupnorm(p, o, h, hk).to(x.dtype) * g
-    out = matmul(o, p["wo"])
+    o = o.transpose(1, 2).reshape(b, s, c1 - c0)
+    o = _head_groupnorm(p, o, h, hk, span=(c0, c1)).to(x.dtype) * g
+    rows = p["wo"].shape[0]
+    out = matmul(o if rows == c1 - c0 else o[..., off:off + rows], p["wo"])
     if return_state:
         return out, state, x[:, -1:].clone()
     return out
 
 
-def time_mix_step(cfg, p: Tree, x, state, x_prev):
+def time_mix_step(cfg, p: Tree, x, state, x_prev, lc=None):
     """O(1) decode step. x: (B, 1, D); state: (B, H, K, V) f32; x_prev:
-    (B, 1, D). Writes `state` and `x_prev` in place and returns them."""
+    (B, 1, D). Writes `state` and `x_prev` in place and returns them. On
+    a rank's shards, with the state of its heads, or of every head's
+    slice of the key dim (heads that do not split evenly)."""
     b, one, d = x.shape
     hk = cfg.rwkv_head_dim
-    h = d // hk
     sx = x_prev - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx)
-    r = matmul(xr, p["wr"]).reshape(b, h, hk).float()
-    kk = matmul(xk, p["wk"]).reshape(b, h, hk).float()
-    v = matmul(xv, p["wv"]).reshape(b, h, hk).float()
-    g = F.silu(matmul(xg, p["wg"]))
-    logw = -torch.exp(
-        p["w0"].float()
-        + torch.tanh(xw.float() @ p["wa"].float()) @ p["wb"].float())
-    w = torch.exp(logw.reshape(b, h, hk))
+    r, first = _proj(xr, p["wr"], d, hk, lc)
+    h = r.shape[-1] // hk
+    r = r.reshape(b, h, hk).float()
+    kk = _proj(xk, p["wk"], d, hk, lc)[0].reshape(b, h, hk).float()
+    v = _proj(xv, p["wv"], d, hk, lc)[0].reshape(b, h, hk).float()
+    g = F.silu(_proj(xg, p["wg"], d, hk, lc)[0])
+    logw = _decay(p, xw)
+    w = torch.exp(logw[..., first:first + h * hk].reshape(b, h, hk))
 
     ru_kv = (r * p["u"] * kk).sum(-1)                        # (B,H)
-    o = (r[:, :, None, :] @ state)[:, :, 0] + ru_kv[..., None] * v
+    if state.shape[2] != hk:
+        # the state's key dim split over the model dim (heads that do not
+        # divide it): r's product summed from the ranks' slices
+        r, kk, w = (lc.take(t, -1) for t in (r, kk, w))
+        o = lc.reduce((r[:, :, None, :] @ state)[:, :, 0])
+    else:
+        o = (r[:, :, None, :] @ state)[:, :, 0]
+    o = o + ru_kv[..., None] * v
     state.mul_(w[..., None]).add_(kk[..., :, None] * v[..., None, :])
     x_prev.copy_(x)
 
-    o = o.reshape(b, 1, d)
-    o = _head_groupnorm(p, o, h, hk).to(x.dtype) * g
-    return matmul(o, p["wo"]), state, x_prev
+    # the heads the rank's wo rows read, from those it holds
+    c0, c1, off = _span(p, d, hk, lc)
+    o = o.reshape(b, 1, h * hk)[..., c0 - first:c1 - first]
+    o = _head_groupnorm(p, o, (c1 - c0) // hk, hk, span=(c0, c1))
+    o = o.to(x.dtype) * g[..., c0 - first:c1 - first]
+    rows = p["wo"].shape[0]
+    return (matmul(o if rows == c1 - c0 else o[..., off:off + rows],
+                   p["wo"]), state, x_prev)
 
 
-def channel_mix_full(cfg, p: Tree, x, x_prev=None):
+def _channel_mix(p: Tree, x, sx, lc=None):
+    """sigmoid(xr wr) * (relu(xk wk)^2 wv); on a rank's shards the partial
+    `kk @ wv` reduce-scattered onto the rank's channels, gated there, and
+    all-gathered whole (the block's output is not partial)."""
+    xr = x + sx * p["mu_r"].to(x.dtype)
+    xk = x + sx * p["mu_k"].to(x.dtype)
+    kk = torch.square(F.relu(matmul(xk, p["wk"])))
+    if lc is None or not lc.sharded:
+        return torch.sigmoid(matmul(xr, p["wr"])) * matmul(kk, p["wv"])
+    vv = lc.scatter(matmul(kk, p["wv"]), -1)
+    return lc.gather(torch.sigmoid(matmul(xr, p["wr"])) * vv, -1,
+                     partial=False)
+
+
+def channel_mix_full(cfg, p: Tree, x, x_prev=None, lc=None):
     b, s, d = x.shape
     if x_prev is None:
         x_prev = x.new_zeros(b, 1, d)
     sx = torch.cat([x_prev, x[:, :-1]], dim=1) - x
-    xr = x + sx * p["mu_r"].to(x.dtype)
-    xk = x + sx * p["mu_k"].to(x.dtype)
-    kk = torch.square(F.relu(matmul(xk, p["wk"])))
-    return torch.sigmoid(matmul(xr, p["wr"])) * matmul(kk, p["wv"])
+    return _channel_mix(p, x, sx, lc)
 
 
-def channel_mix_step(cfg, p: Tree, x, x_prev):
+def channel_mix_step(cfg, p: Tree, x, x_prev, lc=None):
     """One token; writes `x_prev` in place and returns it."""
     sx = x_prev - x
-    xr = x + sx * p["mu_r"].to(x.dtype)
-    xk = x + sx * p["mu_k"].to(x.dtype)
     x_prev.copy_(x)
-    kk = torch.square(F.relu(matmul(xk, p["wk"])))
-    return torch.sigmoid(matmul(xr, p["wr"])) * matmul(kk, p["wv"]), x_prev
+    return _channel_mix(p, x, sx, lc), x_prev

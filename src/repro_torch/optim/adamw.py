@@ -65,15 +65,26 @@ def leaves(tree) -> dict:
 
 
 def _zeros(params) -> dict:
-    return tree_nest({k: torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+    """f32 zeros of each leaf's shape (a DTensor leaf's in its placements)."""
+    return tree_nest({k: torch.zeros_like(p, dtype=torch.float32,
+                                          memory_format=torch.preserve_format)
+                      .detach()
                       for k, p in leaves(params).items()})
 
 
 def init_state(params):
-    dev = next(iter(leaves(params).values())).device
-    return {"m": _zeros(params), "v": _zeros(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev),
+    """m, v in f32 beside each leaf and the step count; over DTensor
+    parameters the step is a replicated DTensor on their mesh."""
+    first = next(iter(leaves(params).values()))
+    step = torch.zeros((), dtype=torch.int32,
+                       device=getattr(first, "to_local", lambda: first)().device)
+    if hasattr(first, "device_mesh"):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = first.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return {"m": _zeros(params), "v": _zeros(params), "step": step,
             "err": None}
 
 

@@ -6,8 +6,11 @@ reference's; `SweepPlan`'s fields are the reference's with `interpret` as
 `device`, and a list of `devices` takes the place of a `mesh` (and its
 `axis`) wherever the reference takes one. The LM substrate's modules
 (`configs`, `models`, `utils.flops`, `optim.adamw`, `data.pipeline`,
-`launch.train`) have the reference's names but those `LM_NOT_PORTED`
-lists, with their signatures less a sharding context. The roofline
+`launch.train`) have the reference's names and signatures, a sharding
+context (`ctx`) included. The mesh tooling (`launch.mesh`,
+`launch.sharding`, `launch.dryrun`, `launch.report`) has the reference's
+names and signatures, less what `LAUNCH_LEFT_OUT` gives a reason for
+(ROADMAP.md §C (25)). The roofline
 model (`launch.roofline`, and `kernels.ops`' `hbm_bytes_per_cell` and
 `kernel_roofline`) has the reference's names and signatures, less what
 models XLA's HLO, its TPU lowering and TPU VMEM (ROADMAP.md §C (23)).
@@ -240,28 +243,30 @@ def test_scheduler_surface_matches_reference():
 # counterpart for yet -> the item that brings them
 LM_NOT_PORTED = {
     "configs.base": {}, "configs": {}, "utils.flops": {},
-    "models.common": {
-        "TP_RULES": "§A9 (iv)", "FSDP_RULES": "§A9 (iv)",
-        "EP_RULES": "§A9 (iv)", "logical_to_pspec": "§A9 (iv)",
-        "sanitize_pspec": "§A9 (iv)", "sanitized_pspecs": "§A9 (iv)",
-        "tree_pspecs": "§A9 (iv)", "tree_shapes": "§A9 (iv)"},
-    "models.moe": {"ShardCtx": "§A9 (iv)"},
+    "models.common": {}, "models.moe": {},
     "models.rwkv": {}, "models.mamba": {}, "models.attention": {},
-    "models.transformer": {},
-    "models.steps": {"logits_pspec": "§A9 (iv)"},
+    "models.transformer": {}, "models.steps": {},
     "optim.adamw": {}, "data.pipeline": {}, "launch.train": {},
 }
-# parameters the port's functions drop: a sharding context (a mesh,
-# §A9 (iv)) and the reference's attention query chunks (one flash call
-# tiles its own way, ROADMAP.md §C (16); MLA and cross attention read
-# `cfg.q_chunk`, §C (21), (24)); `layer_param_spec`'s `bidir`, which the
-# reference ignores too (`ls.mixer` carries it: "attn_bidir");
-# `init_params` takes a torch.Generator where the reference takes a key
-LM_DROPPED = {"ctx", "q_chunk", "bidir"}
+# parameters the port's functions drop: the reference's attention query
+# chunks (one flash call tiles its own way, ROADMAP.md §C (16); MLA and
+# cross attention read `cfg.q_chunk`, §C (21), (24)); `layer_param_spec`'s
+# `bidir`, which the reference ignores too (`ls.mixer` carries it:
+# "attn_bidir"); `init_params` takes a torch.Generator where the
+# reference takes a key
+LM_DROPPED = {"q_chunk", "bidir"}
 # parameters the port's functions add at the end: `rope_freqs` builds on a
 # device; `apply_updates` takes the paths that decay, which the reference
-# reads off its stacked layout's ranks (the train step passes them)
-LM_ADDED = {"rope_freqs": ["device"], "apply_updates": ["decay"]}
+# reads off its stacked layout's ranks (the train step passes them); the
+# mixers take the block's view of the mesh inside the layer's `local_map`
+# (`lc`, a `parallel.Local`; None computes unsharded), where the reference
+# reads GSPMD's layout (ROADMAP.md §C (25))
+LM_ADDED = {"rope_freqs": ["device"], "apply_updates": ["decay"],
+            **{name: ["lc"] for name in (
+                "gqa_full", "gqa_prefill", "gqa_decode", "mla_full",
+                "mla_decode", "cross_kv", "cross_attend", "time_mix_full",
+                "time_mix_step", "channel_mix_full", "channel_mix_step",
+                "mamba_step")}}
 
 
 @pytest.mark.parametrize("mod", sorted(LM_NOT_PORTED))
@@ -289,11 +294,77 @@ def test_lm_surface_matches_reference(mod):
         assert got == want + LM_ADDED.get(name, []), (mod, name)
 
 
+# the mesh tooling (ROADMAP.md §A9 (iv)): reference names with no
+# counterpart in the port -> why; parameters the port adds at the end
+LAUNCH_LEFT_OUT = {
+    "launch.mesh": {}, "launch.sharding": {},
+    "launch.dryrun": {
+        "lower_layer_cost": "§C (25): eager torch counts every layer; one "
+                            "trace is split by region",
+        "head_cost": "§C (25): the head is a region of the one trace"},
+    "launch.report": {"V5E_HBM_GB": "§C (25): a TPU's HBM (H100_HBM_GB "
+                                    "here)"},
+}
+LAUNCH_ADDED = {"run_cell": ["cfg", "mesh"], "main": ["argv"]}
+
+
+def _reference_names(mod):
+    """{public function or class or dict name: parameters or None} of a
+    reference module, read from its source: `repro.launch.dryrun` sets
+    XLA's device count for the whole process when imported."""
+    import ast
+    import importlib.util
+
+    spec = importlib.util.find_spec(f"repro.{mod}")
+    tree = ast.parse(open(spec.origin).read())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith(
+                "_"):
+            a = node.args
+            out[node.name] = [x.arg for x in a.posonlyargs + a.args
+                              + a.kwonlyargs]
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out[node.name] = None
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name) and t.id.isupper():
+                    out[t.id] = None
+    return out
+
+
+@pytest.mark.parametrize("mod", sorted(LAUNCH_LEFT_OUT))
+def test_launch_mesh_surface_matches_reference(mod):
+    import importlib
+
+    port = importlib.import_module(f"repro_torch.{mod}")
+    names = _reference_names(mod)
+    for name in LAUNCH_LEFT_OUT[mod]:
+        assert name in names and not hasattr(port, name), (mod, name)
+    for name, params in names.items():
+        if name in LAUNCH_LEFT_OUT[mod]:
+            continue
+        assert hasattr(port, name), (mod, name)
+        if params is not None:
+            got = list(inspect.signature(getattr(port, name)).parameters)
+            assert got == params + LAUNCH_ADDED.get(name, []), (mod, name)
+
+
+def test_nothing_in_the_port_imports_jax_or_the_reference():
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "src" / \
+        "repro_torch"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    hits = [str(p) for p in root.rglob("*.py") if pat.search(p.read_text())]
+    assert hits == []
+
+
 # the roofline model (ROADMAP.md §A8): reference names with no counterpart
 # in the port -> why
 ROOFLINE_LEFT_OUT = {
-    "launch.roofline": {"Collective": "§C (23): parses XLA HLO",
-                        "parse_collectives": "§C (23): parses XLA HLO",
+    "launch.roofline": {"parse_collectives": "§C (23): parses XLA HLO",
                         "collective_wire_bytes": "§C (23): parses XLA HLO",
                         "ICI_BW": "§C (23): a TPU rate (NVLINK_BW here)"},
     "kernels.ops": {"kernel_vmem_bytes": "§C (23): TPU VMEM",
@@ -302,7 +373,7 @@ ROOFLINE_LEFT_OUT = {
                     "compiled_lowering_smoke": "§C (23): a TPU lowering"},
 }
 ROOFLINE_NAMES = {
-    "launch.roofline": ["shape_bytes", "RooflineTerms",
+    "launch.roofline": ["shape_bytes", "RooflineTerms", "Collective",
                         "matrix_profile_roofline", "roofline_fraction",
                         "PEAK_FLOPS", "HBM_BW"],
     "kernels.ops": ["hbm_bytes_per_cell", "FLOPS_PER_CELL",
@@ -323,6 +394,13 @@ def test_roofline_surface_matches_reference(mod):
         if inspect.isfunction(r):
             assert (list(inspect.signature(p).parameters)
                     == list(inspect.signature(r).parameters)), (mod, name)
+        elif name == "Collective":    # the dry-run's traced collectives
+            assert _fields(p) == _fields(r), (mod, name)
+            for kind in ("all-reduce", "all-gather", "reduce-scatter",
+                         "all-to-all", "collective-permute"):
+                for n in (1, 2, 16):
+                    assert (p(kind, 4096, n).wire_bytes
+                            == r(kind, 4096, n).wire_bytes)
         elif inspect.isclass(r):
             # the one field the port adds: the peak a term's FLOPs run at
             assert _fields(p) == _fields(r) + ["peak_flops"], (mod, name)

@@ -239,7 +239,7 @@ def test_train_step_matches_reference(arch, microbatches, weights):
     state = adamw.init_state(model)
     old = {k: t.detach().clone() for k, t in model.named_parameters()}
     got_model, got_state, met = steps.make_train_step(
-        cfg, opt, microbatches=microbatches)(
+        cfg, None, opt, microbatches=microbatches)(
         model, state, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert got_model is model and got_state is state
     assert sorted(met) == sorted(rmet) == ["aux", "ce", "grad_norm", "loss",
@@ -301,7 +301,7 @@ def test_remat_gives_the_same_bits():
         model = transformer.Transformer(
             c, device="cpu", generator=torch.Generator().manual_seed(3))
         state = adamw.init_state(model)
-        step = steps.make_train_step(c, opt, microbatches=2)
+        step = steps.make_train_step(c, None, opt, microbatches=2)
         mets = [step(model, state, batch)[2] for _ in range(2)]
         out.append((model.state_dict(), state, mets))
     (p0, s0, m0), (p1, s1, m1) = out
@@ -326,7 +326,7 @@ def test_remat_carries_the_moe_aux(arch):
         model = transformer.Transformer(
             c, device="cpu", generator=torch.Generator().manual_seed(3))
         state = adamw.init_state(model)
-        met = steps.make_train_step(c, opt, microbatches=2)(
+        met = steps.make_train_step(c, None, opt, microbatches=2)(
             model, state, batch)[2]
         out.append((model.state_dict(), met))
     (p0, m0), (p1, m1) = out
@@ -356,7 +356,7 @@ def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
         model = transformer.Transformer(
             c, device="cpu", generator=torch.Generator().manual_seed(3))
         calls.clear()
-        steps.make_train_step(c, opt, microbatches=2)(
+        steps.make_train_step(c, None, opt, microbatches=2)(
             model, adamw.init_state(model), batch)
         assert len(calls) == per_layer * c.n_layers * 2, remat
         calls.clear()
