@@ -108,6 +108,9 @@ Phases, each printing one JSON line:
      NATSA launch; a seeded `FaultInjector` run (a crashed shard degrades to
      coverage 0.5 bit for bit the survivors' union, a transient failure
      retries to ok, a lapsed deadline answers expired);
+ 17b. `serve_example`: `examples/serve_profiles_torch.py`'s `main()` on
+     the card: the planted series 2 near position 300, the expired answer,
+     the rejected ninth query, 72 NATSA launches;
  18. `main_anytime`: `AnytimeScheduler` with 8 workers x 8 chunks on the
      one card: the ecg-256k self-join (exclusion 128, a planted pair) and
      epilepsy-128k against 32768 (AB, unswapped), one NATSA launch per
@@ -120,7 +123,14 @@ Phases, each printing one JSON line:
      resumed on 4 workers and a seeded supervised run (crashes, retries, a
      killed and flipped checkpoints), each bit for bit the clean run; k = 4
      at bench-16k on the band engine's top-k chunks (no NATSA launch)
-     against its f64 exact top-4, its supervised run bit for bit;
+     against its f64 exact top-4, its supervised run bit for bit; each
+     cell again through a one-rank NCCL group (`make_worker_mesh()`, 1
+     worker x 64 chunks, the same 64 chunks; the k = 4 merge through
+     NCCL's all-gather): every round bit for bit the one-process
+     scheduler's at that plan, `round_ms` of both, 64 NATSA launches at
+     ecg-256k and on the AB cell, the correlations bit for bit one
+     launch's, the group's checkpoint resumed by the one-process 8-worker
+     scheduler to the clean run's bits;
  19. `lm_vs_plain`: llama3-8b at full width, 2 layers, S = 4096 (bf16,
      weights drawn on the card from the seed): the train-mode logits and
      the prefill step's last logits with the flash kernel (wgmma) against
@@ -250,7 +260,8 @@ Phases, each printing one JSON line:
      `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
-     per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1; flash
+     per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1, in one
+     process or through the group; 72 for the serve example; flash
      one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
      olmoe-1b-7b, through the mesh too, 2 for jamba at 16 layers, 28 for
      qwen2-vl-2b, 64 for whisper-large-v3 with its encoder, 0 for MLA and
@@ -379,6 +390,10 @@ ANYTIME_K, ANYTIME_K_N, ANYTIME_K_M = 4, 16384, 128
 # FaultInjector.seeded(2, **ANYTIME_FAULTS) over a 64-chunk, 8-worker plan:
 # 10 rounds, 4 retries, worker 3 excluded after 3 crashes, 3 replans, 1
 # killed and 3 flipped checkpoints of 10 (the same schedule on both cells)
+# the same cells through a one-rank NCCL group (launch.mesh.make_worker_mesh,
+# one worker x 64 chunks: interleaved_chunks cuts by the total count, so the
+# 64 chunks of the 8 x 8 plan), against the one-process scheduler at that plan
+ANYTIME_GROUP_CPW = ANYTIME_WORKERS * ANYTIME_CPW
 ANYTIME_FAULT_SEED = 2
 ANYTIME_FAULTS = dict(n_rounds=64, n_workers=8, p_worker_crash=0.15,
                       p_round_failure=0.3, max_round_failures=2,
@@ -2728,6 +2743,32 @@ def phase_serve() -> dict:
     return out
 
 
+def phase_serve_example() -> dict:
+    """`examples/serve_profiles_torch.py`'s `main()` on the card: the probe
+    names the planted series 2 near position 300, a lapsed query answers
+    expired, the ninth pending query is rejected; one NATSA launch per
+    (query, series) pair of the 12 answered queries against 6 series."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_profiles_torch",
+        os.path.join(ROOT, "examples", "serve_profiles_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    reset_counts()
+    found, secs = _timed(example.main)
+    counts = read_counts()
+    series, pos = found["probe"]
+    check(series == 2 and abs(pos - 300) < 16
+          and found["expired"] == ["expired", 0.0, True]
+          and found["rejected"] == 1, f"serve example: {found}")
+    check(counts["natsa_mp"] == 12 * 6 and counts["flash_attn"] == 0,
+          f"serve example launches {counts}, want 72 NATSA")
+    out = {"phase": "serve_example", "s": secs, "counts": counts, **found}
+    emit(out)
+    return out
+
+
 def _anytime_rounds(sch, ckpt_path=None) -> dict:
     """Step every round of `sch`, each on the host clock to the card's end
     of it; checkpoint after round ANYTIME_CKPT_ROUND when a path is given.
@@ -2845,6 +2886,56 @@ def _supervised(mk, clean, fields, path) -> dict:
     return {"bitwise_clean": equal, "s": secs, "report": rep}
 
 
+def _state_tensors(st) -> list:
+    sides = [st.profile] + ([st.profile_b] if st.profile_b is not None
+                            else [])
+    return [t for side in sides for t in (side.corr, side.index)]
+
+
+def _group_rounds(mk_group, mk_plain, ckpt_path=None) -> tuple:
+    """The anytime scheduler through a one-rank NCCL group: its counts over
+    every round (a checkpoint after ANYTIME_CKPT_ROUND when a path is
+    given), then the one-process [DEVICE] scheduler at the same plan, each
+    round's states, done bitmap and `fraction_done` bit for bit the
+    group's; `round_ms` of both (host clock + synchronize). Returns (the
+    group's scheduler, the record)."""
+    import torch
+
+    grp, setup_s = _timed(mk_group)
+    plain = mk_plain()
+    check(dataclasses.astuple(grp.plan) == dataclasses.astuple(plain.plan),
+          "group and one-process plans differ")
+    states, g_ms, save_s = [], [], None
+    reset_counts()
+    for r in range(grp.plan.n_rounds):
+        st, secs = _timed(grp.step_round)
+        states.append(st)
+        g_ms.append(1e3 * secs)
+        if ckpt_path is not None and r + 1 == ANYTIME_CKPT_ROUND:
+            save_s = _timed(lambda: grp.checkpoint(ckpt_path))[1]
+    counts = read_counts()
+    p_ms, same = [], True
+    for g in states:
+        st, secs = _timed(plain.step_round)
+        p_ms.append(1e3 * secs)
+        same = (same and np.array_equal(st.done, g.done)
+                and st.fraction_done == g.fraction_done
+                and all(torch.equal(a, b) for a, b in
+                        zip(_state_tensors(st), _state_tensors(g))))
+    check(same, "group rounds differ from the one-process rounds")
+    check(counts["flash_attn"] == 0, f"group rounds launched flash {counts}")
+    del states
+    return grp, {"backend": torch.distributed.get_backend(),
+                 "ranks": grp.slots, "chunks": len(grp.plan.chunks),
+                 "rounds": grp.plan.n_rounds, "setup_s": setup_s,
+                 "launches": counts["natsa_mp"], "counts": counts,
+                 "bitwise_one_process": same, "save_s": save_s,
+                 "round_ms": g_ms, "plain_round_ms": p_ms,
+                 "round_ms_median": float(np.median(g_ms)),
+                 "plain_round_ms_median": float(np.median(p_ms)),
+                 "rounds_s": sum(g_ms) / 1e3, "plain_rounds_s": sum(p_ms) / 1e3}
+
+
 def phase_anytime() -> dict:
     """The anytime scheduler on the card, 8 workers x 8 chunks: the
     ecg-256k self-join (a planted pair, checkpoint after round 4 resumed on
@@ -2852,7 +2943,12 @@ def phase_anytime() -> dict:
     non-empty k = 1 chunk one NATSA launch; every chunk against the plain
     version, the chunked profiles bit for bit one launch's correlations;
     k = 4 at bench-16k on the band engine's top-k chunks, no NATSA launch,
-    against its f64 exact top-k and bit for bit under supervision."""
+    against its f64 exact top-k and bit for bit under supervision. Each
+    cell also runs through a one-rank NCCL group, 1 worker x 64 chunks
+    (`group`, `_group_rounds`): every round bit for bit the one-process
+    scheduler's at that plan, the chunked correlations bit for bit one
+    launch's, and the self-join group's checkpoint after round 4 resumed
+    by the one-process 8-worker scheduler to the clean run's bits."""
     import shutil
     import tempfile
 
@@ -2862,6 +2958,7 @@ def phase_anytime() -> dict:
                                                  default_exclusion)
     from repro_torch.core.scheduler import AnytimeScheduler
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_worker_mesh
 
     tmp = tempfile.mkdtemp(prefix="anytime_")
     out = {"phase": "main_anytime", "card": torch.cuda.get_device_name(0),
@@ -2919,6 +3016,36 @@ def phase_anytime() -> dict:
                                  for f in ("p", "i"))}
         check(resumed["bitwise_clean"], "resumed run differs from the clean")
         sup = _supervised(mk, res, ("p", "i"), os.path.join(tmp, "sup.npz"))
+
+        # -- the same self-join through a one-rank NCCL group ---------
+        mesh = make_worker_mesh()
+
+        def mk_on(devices):
+            return lambda: AnytimeScheduler(
+                ts, m, devices, chunks_per_worker=ANYTIME_GROUP_CPW,
+                exclusion=ANYTIME_EXCL)
+
+        gck = os.path.join(tmp, "group.npz")
+        grp, group = _group_rounds(mk_on(mesh), mk_on([DEVICE]), gck)
+        check(group["launches"] == live and group["rounds"] == live
+              and sorted(grp.plan.chunks) == sorted(sch.plan.chunks),
+              f"group self-join: {group['launches']} launches over "
+              f"{group['rounds']} rounds, want {live} of the 8 x 8 chunks")
+        group["vs_one_launch"] = _vs_one_launch(
+            (grp.state.profile.corr, grp.state.profile.index),
+            (one.corr, one.index), ts, ts, m)
+        gres = grp.result()
+        resumed8 = mk()
+        resumed8.resume(gck)
+        resumed8.run()
+        group["resumed_8_workers_bitwise_clean"] = all(
+            torch.equal(getattr(resumed8.result(), f), getattr(gres, f))
+            and torch.equal(getattr(gres, f), getattr(res, f))
+            for f in ("p", "i"))
+        check(group["resumed_8_workers_bitwise_clean"],
+              "the group's checkpoint resumed on 8 workers, or the group's "
+              "run, differs from the clean run")
+        del grp, gres, resumed8
         out["self"] = {"n": n, "m": m, "exclusion": ANYTIME_EXCL, "l": l,
                        "setup_s": setup_s, "launches": counts["natsa_mp"],
                        "counts": counts, **rounds,
@@ -2926,7 +3053,8 @@ def phase_anytime() -> dict:
                        "motif": [pa, pb], "oracle_rows": SAMPLED_ROWS,
                        "oracle_max_corr_err": oracle,
                        "vs_one_launch": vs_one, **chunks,
-                       "resume": resumed, "supervised": sup}
+                       "resume": resumed, "supervised": sup,
+                       "group": group}
         del sch, fresh, one, res
 
         # -- epilepsy-128k AB join, unswapped -------------------------
@@ -2959,12 +3087,27 @@ def phase_anytime() -> dict:
               and vs_ab_join["exact_pair_violations"] == 0,
               f"anytime AB vs ab_join {vs_ab_join}")
         chunks = _anytime_chunks(sch, a, b, m)
+
+        def mk_ab(devices):
+            return lambda: AnytimeScheduler(
+                a, m, devices, ts_b=b, chunks_per_worker=ANYTIME_GROUP_CPW)
+
+        grp, group = _group_rounds(mk_ab(mesh), mk_ab([DEVICE]))
+        check(group["launches"] == live,
+              f"group AB: {group['launches']} launches, want {live}")
+        group["vs_one_launch"] = {
+            "a": _vs_one_launch((grp.state.profile.corr,
+                                 grp.state.profile.index), (ca, ia), a, b, m),
+            "b": _vs_one_launch((grp.state.profile_b.corr,
+                                 grp.state.profile_b.index), (cb, ib), b, a,
+                                m)}
+        del grp
         out["ab"] = {"n_a": AB_NA, "n_b": AB_NB, "m": m, "exclusion": 0,
                      "launches": counts["natsa_mp"], "counts": counts,
                      **{f: v for f, v in rounds.items() if f != "save_s"},
                      "rounds_s": sum(rounds["round_ms"]) / 1e3,
                      "vs_one_launch": vs_one, "vs_ab_join": vs_ab_join,
-                     **chunks}
+                     **chunks, "group": group}
         del sch, ref, res
 
         # -- k = 4 at bench-16k on the engine's top-k chunks ----------
@@ -2994,11 +3137,26 @@ def phase_anytime() -> dict:
         sup = _supervised(mk4, res, ("topk_p", "topk_i"),
                           os.path.join(tmp, "sup4.npz"))
         check(read_counts()["natsa_mp"] == before, "top-k supervised launch")
+
+        def mk4_on(devices):
+            return lambda: AnytimeScheduler(
+                ts, m, devices, k=k, chunks_per_worker=ANYTIME_GROUP_CPW)
+
+        grp, group = _group_rounds(mk4_on(mesh), mk4_on([DEVICE]))
+        gres = grp.result()
+        group["bitwise_8x8"] = all(torch.equal(getattr(gres, f),
+                                               getattr(res, f))
+                                   for f in ("topk_p", "topk_i"))
+        check(group["launches"] == 0 and group["bitwise_8x8"],
+              f"group top-{k}: {group['launches']} launches, bitwise the "
+              f"8 x 8 run {group['bitwise_8x8']}")
+        del grp, gres
         out["topk"] = {"n": n, "m": m, "k": k, "exclusion": sch.exclusion,
                        "launches": counts["natsa_mp"], "counts": counts,
                        **{f: v for f, v in rounds.items() if f != "save_s"},
                        "rounds_s": sum(rounds["round_ms"]) / 1e3,
-                       "oracle": oracle, "supervised": sup}
+                       "oracle": oracle, "supervised": sup,
+                       "group": group}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(out)
@@ -5044,6 +5202,7 @@ def main() -> None:
     mn = phase_monitor(raw_fleet, fleet_x)
     del raw_fleet
     sv = phase_serve()
+    ex = phase_serve_example()
     an = phase_anytime()
     torch.cuda.empty_cache()
     lm = phase_lm()
@@ -5094,6 +5253,10 @@ def main() -> None:
                  "serve": sv, "serve_topk": sv["k4"],
                  "anytime": an["self"], "anytime_ab": an["ab"],
                  "anytime_topk": an["topk"],
+                 "anytime_group": an["self"]["group"],
+                 "anytime_group_ab": an["ab"]["group"],
+                 "anytime_group_topk": an["topk"]["group"],
+                 "serve_example": ex,
                  "lm_prefill": lm["prefill"], "lm_decode": lm["decode"],
                  "lm_moe_prefill": lm_moe["prefill"],
                  "lm_moe_decode": lm_moe["decode"],
@@ -5119,7 +5282,10 @@ def main() -> None:
         "launches": (s["launches"] + ab["launches"]
                      + mn["telemetry"]["motif_counts"]["natsa_mp"]
                      + sv["counts"]["natsa_mp"]
-                     + an["self"]["launches"] + an["ab"]["launches"]),
+                     + an["self"]["launches"] + an["ab"]["launches"]
+                     + an["self"]["group"]["launches"]
+                     + an["ab"]["group"]["launches"]
+                     + ex["counts"]["natsa_mp"]),
         "launches_by_path": {"matrix_profile": s["launches"],
                              "ab_join": ab["launches"],
                              "flash_attention": fl["counts"]["natsa_mp"],
@@ -5142,6 +5308,9 @@ def main() -> None:
         "anytime": {side: {f: an[side][f] for f in (
             "launches", "chunk_ms_sum", "chunk_ms_max", "plain_ms_sum",
             "bound_ms_sum", "rounds_s")} for side in ("self", "ab")},
+        "anytime_group": {side: {f: an[side]["group"][f] for f in (
+            "launches", "rounds", "round_ms_median", "plain_round_ms_median",
+            "rounds_s", "plain_rounds_s")} for side in ("self", "ab")},
     }, {
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,

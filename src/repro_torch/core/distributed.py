@@ -1,14 +1,24 @@
-"""Anytime rounds over a list of devices in one process — port of
+"""Anytime rounds, one worker per device or one per rank — port of
 `repro.core.distributed`.
 
 Each worker executes one equal-work diagonal chunk per round, and the
-workers' states are merged into the running profile: the reference's
+workers' states are merged into the running profile with the reference's
 argmax-carrying all-reduce (`pmax_profile`) and its gather + union top-k
-(`allreduce_topk`) become local merges over the workers' states, in worker
-order, with the reference's tie rules. Worker w runs on `devices[w]` (one
-card may repeat; the payload is moved there, a no-op where it already
-lives), and the merge happens on `devices[0]`; the workers run one after
-another.
+(`allreduce_topk`), under the reference's tie rules. The workers are
+either
+
+  * a list of torch devices in one process: worker w runs on
+    `devices[w]` (one card may repeat; the payload is moved there, a no-op
+    where it already lives), the workers run one after another, idle ones
+    are skipped, and the merges are local ones on `devices[0]`; or
+  * a 1-D `DeviceMesh` (`launch.mesh.make_worker_mesh()`), one rank per
+    worker, which takes the place of the reference's `(mesh, axis)`: rank
+    r sweeps chunk r on its own device (`cuda:LOCAL_RANK` under NCCL, the
+    CPU under gloo) and the merges are collectives over the mesh's group
+    (`_pmax_group`: two MAX all-reduces, O(l) a side; `_allreduce_topk_group`:
+    one all-gather of each side's (l, k) set). An idle rank merges an empty
+    state, as the reference's idle workers do; that gives the list path's
+    bits (`tests/test_torch_distributed_mp.py`).
 
 Chunks are TWO-SIDED: every cell a worker streams updates both the row
 profile P[i] and the column profile P[j] (for AB joins, A's and B's
@@ -20,17 +30,15 @@ tensors), where the reference sweeps its band engine (ROADMAP.md §C (15)).
 At k > 1 the workers sweep the band engine's exact top-k tiles, as the
 reference's do. An empty chunk (idle worker, or one already done) sweeps
 and launches nothing.
-
-Multi-process rounds over `torch.distributed` are not ported
-(ROADMAP.md §A6 (ii)); `plan.round_executor` refuses them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.matrix_profile import (
-    DEFAULT_RESEED, ProfileState, TopKState, chunk_topk, chunk_topk_ab,
+    DEFAULT_RESEED, NEG, ProfileState, TopKState, chunk_topk, chunk_topk_ab,
 )
 from repro_torch.core.zstats import CrossStats, ZStats
 from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, ops
@@ -111,11 +119,85 @@ def worker_chunk_ab_topk(cross: CrossStats, k0: int, k1: int, n_bands: int,
                          k_hi=k1)
 
 
-def _chunks(k0s, k1s, devices):
-    """(worker, k0, k1) of each non-empty chunk of a round."""
-    if len(k0s) != len(devices) or len(k1s) != len(devices):
+def _is_mesh(devices) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(devices, DeviceMesh)
+
+
+def _group_size() -> int:
+    """Ranks in the default process group (1 where none is up)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _rank_device(mesh) -> torch.device:
+    """This rank's device on `mesh`: the card `launch.mesh.init_group`
+    selected (LOCAL_RANK) under NCCL, the host under gloo."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _worker_group(mesh):
+    """(group, size, this rank's worker index) of a 1-D worker mesh; the
+    index is the rank's place in the group, the order of `all_gather`."""
+    if mesh.ndim != 1:
+        raise ValueError(f"rounds take a 1-D mesh of workers, got "
+                         f"{mesh.ndim} dims {mesh.mesh_dim_names}: pass "
+                         "mesh['workers']")
+    group = mesh.get_group()
+    return group, mesh.size(), dist.get_rank(group)
+
+
+def _agree(mesh, what: str, values) -> None:
+    """Raise ValueError on EVERY rank unless all ranks of `mesh` hold the
+    same int64 `values` (one all-gather): ranks handed different inputs
+    stop here rather than merge unrelated profiles."""
+    group, size, _ = _worker_group(mesh)
+    mine = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                        device=_rank_device(mesh))
+    got = [torch.empty_like(mine) for _ in range(size)]
+    dist.all_gather(got, mine, group=group)
+    rows = [g.tolist() for g in got]
+    bad = [r for r, v in enumerate(rows) if v != rows[0]]
+    if bad:
+        raise ValueError(f"ranks {bad} hold another {what} than rank 0: "
+                         f"{rows}")
+
+
+def _pmax_group(state: ProfileState, group) -> ProfileState:
+    """`pmax_profile` over the ranks of `group`, as the reference's: a MAX
+    all-reduce of the correlations, then a MAX all-reduce of the indices
+    of the states holding the maximum (ties -> the highest index)."""
+    gmax = state.corr.clone()
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    gidx = torch.where(state.corr >= gmax, state.index, -1)
+    dist.all_reduce(gidx, op=dist.ReduceOp.MAX, group=group)
+    return ProfileState(corr=gmax, index=gidx)
+
+
+def _allreduce_topk_group(state: TopKState, group, size: int) -> TopKState:
+    """`allreduce_topk` over the ranks of `group`: each rank's (l, k) set
+    gathered in rank order, then the list union."""
+    cs = [torch.empty_like(state.corr) for _ in range(size)]
+    ids = [torch.empty_like(state.index) for _ in range(size)]
+    dist.all_gather(cs, state.corr.contiguous(), group=group)
+    dist.all_gather(ids, state.index.contiguous(), group=group)
+    return allreduce_topk([TopKState(c, i) for c, i in zip(cs, ids)])
+
+
+def _empty_like(state):
+    return type(state)(torch.full_like(state.corr, NEG),
+                       torch.full_like(state.index, -1))
+
+
+def _chunks(k0s, k1s, n: int):
+    """(worker, k0, k1) of each non-empty chunk of a round of n workers."""
+    if len(k0s) != n or len(k1s) != n:
         raise ValueError(f"a round takes one (k0, k1) per worker: "
-                         f"{len(devices)} devices, got {len(k0s)} k0s and "
+                         f"{n} workers, got {len(k0s)} k0s and "
                          f"{len(k1s)} k1s")
     return [(w, int(a), int(b)) for w, (a, b) in enumerate(zip(k0s, k1s))
             if int(b) > int(a)]
@@ -125,66 +207,105 @@ def _on(state, device):
     return type(state)(state.corr.to(device), state.index.to(device))
 
 
-def make_round_fn(plan, devices: list[torch.device]):
+def _sweep(plan, payload, k0: int, k1: int) -> tuple:
+    """One worker's chunk: (state,) of a self-join, (state_a, state_b) of
+    an AB join."""
+    n_bands, band, reseed = plan.n_bands, plan.band, plan.reseed_every
+    k, it, dt = plan.harvest.k, plan.it, plan.dt
+    if plan.kind == "ab":
+        if k > 1:
+            return worker_chunk_ab_topk(payload, k0, k1, n_bands, band, k,
+                                        reseed)
+        return worker_chunk_ab(payload, k0, k1, it, dt)
+    if k > 1:
+        return (worker_chunk_topk(payload, k0, k1, n_bands, band, k,
+                                  reseed),)
+    return (worker_chunk(payload, k0, k1, it, dt),)
+
+
+def _list_round(plan, devices: list[torch.device]):
+    """(payload, running states, k0s, k1s) -> merged states: the workers
+    one after another in this process, merged on `devices[0]`."""
+    k = plan.harvest.k
+
+    def round_fn(payload, runnings, k0s, k1s):
+        locals_ = []
+        for w, k0, k1 in _chunks(k0s, k1s, len(devices)):
+            locals_.append([_on(x, devices[0]) for x in
+                            _sweep(plan, payload.to(devices[w]), k0, k1)])
+        if not locals_:            # every worker idle: nothing merges
+            return runnings
+        sides = zip(runnings, zip(*locals_))
+        if k > 1:
+            return tuple(run.merge(allreduce_topk(list(locs)))
+                         for run, locs in sides)
+        return tuple(pmax_profile([run.merge(x) for x in locs])
+                     for run, locs in sides)
+
+    return round_fn
+
+
+def _mesh_round(plan, mesh):
+    """The same round with one rank per worker: rank r sweeps chunk r (an
+    idle rank an empty state) and the merges are collectives. A round in
+    which every worker is idle returns the running states on every rank
+    without a collective (every rank sees the same bounds)."""
+    group, size, rank = _worker_group(mesh)
+    dev = _rank_device(mesh)
+    k = plan.harvest.k
+
+    def round_fn(payload, runnings, k0s, k1s):
+        if not _chunks(k0s, k1s, size):
+            return runnings
+        k0, k1 = int(k0s[rank]), int(k1s[rank])
+        loc = (_sweep(plan, payload.to(dev), k0, k1) if k1 > k0
+               else tuple(_empty_like(run) for run in runnings))
+        if k > 1:
+            return tuple(run.merge(_allreduce_topk_group(x, group, size))
+                         for run, x in zip(runnings, loc))
+        return tuple(_pmax_group(run.merge(x), group)
+                     for run, x in zip(runnings, loc))
+
+    return round_fn
+
+
+def _round(plan, devices):
+    return (_mesh_round(plan, devices) if _is_mesh(devices)
+            else _list_round(plan, devices))
+
+
+def make_round_fn(plan, devices):
     """The round function of a self-join `SweepPlan` (`plan.round_executor`
     is the only caller; tiling and reseed knobs come off the plan).
+    `devices` is a list of torch devices, one per worker, or a 1-D
+    `DeviceMesh`, one rank per worker.
 
     Signature: (stats, running, k0s (P,), k1s (P,)) -> merged state, with
-    one (k0, k1) per device; idle workers pass k0 == k1. At k = 1 the
+    one (k0, k1) per worker; idle workers pass k0 == k1. At k = 1 the
     result is exactly `pmax_profile` over the workers of
     `running.merge(local_w)`, an empty local for an idle worker; plans
     with `harvest.k > 1` merge the workers' locals first
     (`allreduce_topk`), then the running state once, as the reference
     does (a union over P copies of every prior winner would evict true
     top-k entries)."""
-    n_bands, band, reseed = plan.n_bands, plan.band, plan.reseed_every
-    k, it, dt = plan.harvest.k, plan.it, plan.dt
+    round_ = _round(plan, devices)
 
     def round_fn(stats: ZStats, running, k0s, k1s):
-        locals_ = []
-        for w, k0, k1 in _chunks(k0s, k1s, devices):
-            s = stats.to(devices[w])
-            if k > 1:
-                loc = worker_chunk_topk(s, k0, k1, n_bands, band, k, reseed)
-            else:
-                loc = worker_chunk(s, k0, k1, it, dt)
-            locals_.append(_on(loc, devices[0]))
-        if not locals_:            # every worker idle: nothing merges
-            return running
-        if k > 1:
-            return running.merge(allreduce_topk(locals_))
-        return pmax_profile([running.merge(loc) for loc in locals_])
+        return round_(stats, (running,), k0s, k1s)[0]
 
     return round_fn
 
 
-def make_round_fn_ab(plan, devices: list[torch.device]):
+def make_round_fn_ab(plan, devices):
     """AB analogue of `make_round_fn`, carrying both profiles.
 
     Signature: (cross, running_a, running_b, k0s (P,), k1s (P,))
     -> (merged_a, merged_b). Idle workers pass k0 == k1. The chunks are
     signed diagonal ranges of the rectangle in `cross`'s orientation (A on
     rows, never swapped)."""
-    n_bands, band, reseed = plan.n_bands, plan.band, plan.reseed_every
-    k, it, dt = plan.harvest.k, plan.it, plan.dt
+    round_ = _round(plan, devices)
 
     def round_fn(cross: CrossStats, running_a, running_b, k0s, k1s):
-        loc_a, loc_b = [], []
-        for w, k0, k1 in _chunks(k0s, k1s, devices):
-            c = cross.to(devices[w])
-            if k > 1:
-                a, b = worker_chunk_ab_topk(c, k0, k1, n_bands, band, k,
-                                            reseed)
-            else:
-                a, b = worker_chunk_ab(c, k0, k1, it, dt)
-            loc_a.append(_on(a, devices[0]))
-            loc_b.append(_on(b, devices[0]))
-        if not loc_a:
-            return running_a, running_b
-        if k > 1:
-            return (running_a.merge(allreduce_topk(loc_a)),
-                    running_b.merge(allreduce_topk(loc_b)))
-        return (pmax_profile([running_a.merge(x) for x in loc_a]),
-                pmax_profile([running_b.merge(x) for x in loc_b]))
+        return round_(cross, (running_a, running_b), k0s, k1s)
 
     return round_fn

@@ -7,7 +7,8 @@ plain-tensor sweep of `core.matrix_profile`, with its exact top-k, its
 nonnorm recurrence and the 16-bit self-join tile sweep), the
 row-streamed AB sweep ("rowstream") and the anytime scheduler's rounds
 ("distributed", run round by round through `round_executor` over a list
-of devices in one process; k = 1 chunks launch the NATSA kernel). `backend=None` resolves an unbatched
+of devices in one process or a 1-D `DeviceMesh`, one rank per worker;
+k = 1 chunks launch the NATSA kernel). `backend=None` resolves an unbatched
 k = 1 z-normalized plan to the kernel unless the call asks for what only
 the engine does — a non-default `band`, `clamp_rows=False`, a
 `reseed_every` other than its default or None, or `accum="float64"`;
@@ -16,14 +17,12 @@ reference resolves it (rowstream for short z-normalized AB sides, else the
 engine). The plan records the choice. Batched plans sweep each series of a
 stacked payload as the unbatched plan would. What the reference plans onto
 other sweeps raises `NotImplementedError` here rather than quietly taking
-another path:
-
-  * a round executor under a multi-process `torch.distributed` group,
-    naming the ROADMAP.md item that brings it;
-  * on the kernel backend, a non-default `band` or `clamp_rows`, and a
-    `reseed_every` other than its default or None: the CUDA kernel, like
-    the TPU kernel it replaces, never reseeds, so the default is recorded
-    for plan parity and any other period would be silently ignored.
+another path: on the kernel backend a non-default `band` or `clamp_rows`,
+and a `reseed_every` other than its default or None (on a k = 1
+distributed plan `clamp_rows=False` and such a `reseed_every`) — the CUDA
+kernel, like the TPU kernel it replaces, never reseeds, so the default is
+recorded for plan parity and any other period would be silently ignored. `_NOT_PORTED` is empty: nothing of the
+reference's planner is left to port.
 
 Kept from the reference: AB orientation (`swap_ab`, the short side on rows
 for the kernel and rowstream; the engine's row clamp makes it moot), the
@@ -56,15 +55,7 @@ from repro_torch.utils.device import resolve_device
 BACKENDS = ("engine", "rowstream", "kernel", "distributed")
 
 # what is not ported yet -> the ROADMAP.md item that brings it
-_NOT_PORTED = {
-    "multi-process": "multi-process rounds over torch.distributed "
-                     "(ROADMAP.md §A6 (ii))",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{_NOT_PORTED[what]} is not ported to "
-                               "repro_torch yet")
+_NOT_PORTED: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -640,11 +631,15 @@ def round_executor(plan: SweepPlan, devices):
     """Executor entry for distributed plans: the round function the
     `AnytimeScheduler` steps (the only caller of
     `distributed.make_round_fn` / `make_round_fn_ab`). `devices` takes the
-    place of the reference's `(mesh, axis)`: one torch device per worker,
-    where one card may repeat; the workers run in this process, one after
-    another, and their states merge on `devices[0]`. The plan must carry
-    `n_bands` — the band count of the widest chunk — which the scheduler
-    knows only after partitioning (use `dataclasses.replace`)."""
+    place of the reference's `(mesh, axis)`: either one torch device per
+    worker, where one card may repeat (the workers run in this process,
+    one after another, and their states merge on `devices[0]`), or a 1-D
+    `DeviceMesh` of workers (`launch.mesh.make_worker_mesh()`; from a
+    larger mesh, `mesh["workers"]`), one rank per worker, merged by
+    collectives. Under a group of more than one rank a device list raises
+    `ValueError`: every rank would run all the workers. The plan must
+    carry `n_bands` — the band count of the widest chunk — which the
+    scheduler knows only after partitioning (use `dataclasses.replace`)."""
     if plan.backend != "distributed":
         raise ValueError(f"round_executor needs a distributed plan, got "
                          f"backend {plan.backend!r}")
@@ -652,15 +647,19 @@ def round_executor(plan: SweepPlan, devices):
         raise ValueError("distributed plan lacks n_bands: "
                          "dataclasses.replace(plan, n_bands=...) after "
                          "partitioning")
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise _not_ported("multi-process")
     from repro_torch.core import distributed
 
+    make = (distributed.make_round_fn_ab if plan.kind == "ab"
+            else distributed.make_round_fn)
+    if distributed._is_mesh(devices):
+        return make(plan, devices)
+    ranks = distributed._group_size()
+    if ranks > 1:
+        raise ValueError(f"a device list runs every worker on each of the "
+                         f"torch.distributed group's {ranks} ranks: pass a "
+                         "1-D DeviceMesh of workers "
+                         "(launch.mesh.make_worker_mesh())")
     devs = [resolve_device(d) for d in devices]
     if not devs:
         raise ValueError("devices must name at least one device")
-    if plan.kind == "ab":
-        return distributed.make_round_fn_ab(plan, devs)
-    return distributed.make_round_fn(plan, devs)
+    return make(plan, devs)

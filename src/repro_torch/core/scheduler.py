@@ -1,5 +1,6 @@
 """Anytime scheduler: rounds, progress, checkpoint, elasticity — port of
-`repro.core.scheduler`, over a list of devices in one process.
+`repro.core.scheduler`, over a list of devices in one process or one rank
+per worker of a `torch.distributed` group.
 
 Builds a distributed-backend `SweepPlan` (core.plan) and steps the round
 function the plan executor provides (`plan.round_executor`) over an
@@ -17,10 +18,19 @@ function the plan executor provides (`plan.round_executor`) over an
 
 `devices` takes the place of the reference's `(mesh, axis)`: one torch
 device per worker, where one card may repeat (8 workers on one card);
-`devices=None` is one worker on the card. At k = 1 every non-empty chunk
-is one launch of the NATSA kernel (ROADMAP.md §C (15)). The control plane
-is host-side numpy; checkpoints are the reference's format 2, and each
-package resumes the other's.
+`devices=None` is one worker on the card. Or a 1-D `DeviceMesh`
+(`launch.mesh.make_worker_mesh()`), one rank per worker: every rank runs
+the same scheduler on the same series (checked at construction), sweeps
+its own chunk of each round and ends the round holding the same merged
+state, bit for bit what the list path computes over the same chunks.
+Under a group, rank 0 writes the checkpoints and every rank reads them;
+a crashed worker is a `fail_workers` slot as in one process, but a real
+failure of one rank is not survived: its peers stop at their next
+collective and the group's timeout ends the run with an error. At k = 1
+every non-empty chunk is one launch of the NATSA kernel (ROADMAP.md
+§C (15)). The control plane is host-side numpy; checkpoints are the
+reference's format 2, and each package, and either form of the port's
+scheduler, resumes the other's.
 """
 
 from __future__ import annotations
@@ -34,8 +44,9 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core import partition
+from repro_torch.core import distributed, partition
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.faults import (CheckpointCorruptionError,
                                      CheckpointWriteError, FaultPolicy,
@@ -123,7 +134,8 @@ class SchedulerState:
 
 
 class AnytimeScheduler:
-    """Round-based anytime matrix profile over a list of devices.
+    """Round-based anytime matrix profile over a list of devices, or a 1-D
+    mesh of ranks.
 
     Self-join by default; pass `ts_b` for an AB join — the plan then covers
     the SIGNED diagonal space of the (l_a, l_b) rectangle (no exclusion zone
@@ -138,10 +150,20 @@ class AnytimeScheduler:
                  chunks_per_worker: int = 8, exclusion: int | None = None,
                  ts_b=None, k: int = 1):
         self.window = int(window)
-        self.devices = [resolve_device(d) for d in
-                        (devices if devices is not None else [None])]
-        if not self.devices:
-            raise ValueError("devices must name at least one device")
+        if distributed._is_mesh(devices):
+            # one worker slot per rank, the state on this rank's device
+            distributed._worker_group(devices)          # 1-D or raises
+            self.mesh, self.devices = devices, devices
+            self.slots = devices.size()
+            self.home = distributed._rank_device(devices)
+        else:
+            self.mesh = None
+            self.devices = [resolve_device(d) for d in
+                            (devices if devices is not None else [None])]
+            if not self.devices:
+                raise ValueError("devices must name at least one device")
+            self.slots = len(self.devices)
+            self.home = self.devices[0]
         self.band = band
         self.k = int(k)
         self.ab = ts_b is not None
@@ -149,12 +171,13 @@ class AnytimeScheduler:
         if self.ab:
             validate_series(ts_b, self.window, name="ts_b")
         ts = np.asarray(ts, np.float32)
-        n_workers = len(self.devices)
-        home = self.devices[0]
+        ts_b = None if ts_b is None else np.asarray(ts_b, np.float32)
+        n_workers = self.slots
+        home = self.home
         if self.ab:
             self.exclusion = 0 if exclusion is None else int(exclusion)
             self.cross = compute_cross_stats_host(
-                ts, np.asarray(ts_b, np.float32), self.window, device=home)
+                ts, ts_b, self.window, device=home)
             self.l = self.cross.l_a
             self.l_b = self.cross.l_b
             self.plan = partition.interleaved_chunks_ab(
@@ -173,6 +196,11 @@ class AnytimeScheduler:
         self.sweep_plan = plan_mod.plan_sweep(
             self.window, self.l, self.l_b, exclusion=self.exclusion,
             band=band, backend="distributed", k=self.k, device=home)
+        if self.mesh is not None:
+            distributed._agree(self.mesh, "series or plan", (
+                _crc32(ts), -1 if ts_b is None else _crc32(ts_b),
+                self.window, self.exclusion, band, self.k,
+                _crc32(np.asarray(self.plan.chunks, np.int64))))
         self._round_fn = self._make_round_fn(self.plan)
         self.state = SchedulerState(
             plan=self.plan,
@@ -187,8 +215,8 @@ class AnytimeScheduler:
 
     def _empty_state(self, l: int):
         if self.k > 1:
-            return TopKState.empty(l, self.k, device=self.devices[0])
-        return ProfileState.empty(l, device=self.devices[0])
+            return TopKState.empty(l, self.k, device=self.home)
+        return ProfileState.empty(l, device=self.home)
 
     def _make_round_fn(self, plan: AnytimePlan):
         """One round step via the plan executor — the scheduler never
@@ -224,9 +252,9 @@ class AnytimeScheduler:
                 k0, k1 = self.plan.chunks[c]
                 k0s.append(k0)
                 k1s.append(k1)
-        # elastic shrink: a plan for fewer workers than there are devices
-        # leaves the surplus devices idle (empty chunks)
-        while len(k0s) < len(self.devices):
+        # elastic shrink: a plan for fewer workers than there are slots
+        # leaves the surplus devices or ranks idle (empty chunks)
+        while len(k0s) < self.slots:
             k0s.append(empty)
             k1s.append(empty)
         return (np.asarray(k0s, np.int32), np.asarray(k1s, np.int32))
@@ -308,12 +336,15 @@ class AnytimeScheduler:
         Faults are observable afterwards in `self.supervised_report`;
         `injector` threads the deterministic chaos schedule
         (`core.faults.FaultInjector`) through rounds and checkpoint writes.
-        Returns the final (or degraded) `ProfileResult`.
+        Under a group every rank runs this loop with the same policy and
+        injector, so the ranks retry, exclude and replan in step; an error
+        of a collective is not retried. Returns the final (or degraded)
+        `ProfileResult`.
         """
         policy = FaultPolicy() if policy is None else policy
         report = SupervisedReport()
         self.supervised_report = report
-        n_devices = len(self.devices)
+        n_devices = self.slots
         active = self.state.plan.n_workers
         tick = 0
         serial = 0
@@ -338,10 +369,16 @@ class AnytimeScheduler:
                     self.step_round(fail_workers=crashed, injector=injector,
                                     tick=tick, attempt=attempt)
                     break
-                except RuntimeError:
+                except RuntimeError as e:
                     # RoundFailure and real dispatch errors retry alike; a
                     # failed attempt committed nothing, so the retry re-runs
                     # the SAME round against the same previous profile.
+                    # Under a group only the schedule's RoundFailure, which
+                    # every rank raises alike, retries: a collective's
+                    # error leaves the ranks out of step.
+                    if self.mesh is not None and not isinstance(
+                            e, RoundFailure):
+                        raise
                     attempt += 1
                     report.retries += 1
                     if attempt > policy.max_retries:
@@ -424,7 +461,40 @@ class AnytimeScheduler:
         when the latest file fails verification. `injector`/`serial` thread
         the chaos harness's kill/bit-flip hooks through the commit points;
         returns True if the injector corrupted the committed file.
+
+        Under a group rank 0 writes (every rank holds the same state) and
+        broadcasts the outcome, which doubles as the barrier: every rank
+        returns once the file is committed, or raises as rank 0 did
+        (`CheckpointWriteError` for an interrupted write). `path` must be
+        on storage every rank reads.
         """
+        if self.mesh is None:
+            return self._write_checkpoint(path, injector, serial)
+        group, _, rank = distributed._worker_group(self.mesh)
+        # 1 committed, 2 committed and corrupted, 3 interrupted, 4 failed
+        outcome, err = 0, None
+        if rank == 0:
+            try:
+                outcome = 2 if self._write_checkpoint(path, injector,
+                                                      serial) else 1
+            except CheckpointWriteError as e:
+                outcome, err = 3, e
+            except Exception as e:
+                outcome, err = 4, e
+        flag = torch.tensor([outcome], dtype=torch.int32, device=self.home)
+        dist.broadcast(flag, src=dist.get_global_rank(group, 0), group=group)
+        outcome = int(flag.item())
+        if err is not None:
+            raise err
+        if outcome == 3:
+            raise CheckpointWriteError(
+                f"checkpoint write interrupted on rank 0 (serial {serial})")
+        if outcome == 4:
+            raise RuntimeError(f"checkpoint write to {path!r} failed on "
+                               "rank 0")
+        return outcome == 2
+
+    def _write_checkpoint(self, path: str, injector, serial: int) -> bool:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = tempfile.NamedTemporaryFile(
             dir=os.path.dirname(path) or ".", delete=False, suffix=".tmp")
@@ -505,8 +575,17 @@ class AnytimeScheduler:
             raise ValueError(f"checkpoint carries k={ck} neighbour sets but "
                              f"this scheduler was built with k={self.k}")
         done = z["done"]
+        if self.mesh is not None:
+            # every rank read the same file, and none writes the next
+            # checkpoint before all have read this one
+            distributed._agree(self.mesh, "checkpoint", [
+                _crc32(z[name]) for name in ("done", "corr", "index")])
+        workers = n_workers or self.slots
+        if workers > self.slots:
+            raise ValueError(f"n_workers={workers} exceeds the scheduler's "
+                             f"{self.slots} worker slots")
         state_cls = TopKState if self.k > 1 else ProfileState
-        home = self.devices[0]
+        home = self.home
 
         def state(corr, index):
             return state_cls(torch.from_numpy(corr).to(home),
@@ -518,7 +597,6 @@ class AnytimeScheduler:
             if "corr_b" not in z:
                 raise ValueError("AB checkpoint must carry the B-side state")
             profile_b = state(z["corr_b"], z["index_b"])
-        workers = n_workers or len(self.devices)
         base = AnytimePlan(l=self.l, exclusion=self.exclusion,
                            n_workers=workers,
                            chunks=tuple(tuple(c) for c in meta["chunks"]),

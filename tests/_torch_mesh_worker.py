@@ -4,15 +4,21 @@
 
 with a gloo group over a `FileStore` (no TCP port), or, for the `trace`
 suite, alone over a fake 4-rank group. Rank 0 writes the suite's results
-to OUT as JSON. The test files (`test_torch_mesh_*.py`) start the ranks
-and read the results; the reference's side runs in its own subprocess
-there (`reference_side`).
+to OUT as JSON. The test files (`test_torch_mesh_*.py`,
+`test_torch_distributed_mp.py` and the one-rank checks of the scheduler's
+tests) start the ranks and read the results; the reference's side runs in
+its own subprocess there (`reference_side`). The mesh is 2 x 2
+(data, model) but for the anytime suites, whose mesh is the 1-D
+`workers` axis over every rank.
 """
 
+import dataclasses
+import datetime
 import json
 import os
 import sys
 import warnings
+import zlib
 
 import numpy as np
 
@@ -382,13 +388,291 @@ def _gathered_weights(model, log) -> list:
     return sorted(out)
 
 
+# -- the anytime rounds over a group (test_torch_distributed_mp.py) --------
+
+ANY_SUITES = ("anytime", "one_rank")
+ANY_TIMEOUT_S = 120          # a rank left alone in a collective fails
+ANY_M = 20
+ANY_KW = dict(band=16, chunks_per_worker=4)
+# name -> (AB join, k); the exclusions are the scheduler's defaults (5, 0)
+ANY_CASES = {"self_k1": (False, 1), "ab_k1": (True, 1),
+             "self_k4": (False, 4), "ab_k4": (True, 4)}
+# failures in consecutive rounds, then resumes onto 3, 2 and 4 workers
+ANY_CHAIN = (("step", (1, 3)), ("step", (1,)), ("step", (0, 2, 3)),
+             ("ckpt",), ("resume", 3), ("step", ()), ("step", (2,)),
+             ("ckpt",), ("resume", 2), ("step", ()), ("ckpt",),
+             ("resume", 4), ("run",))
+ANY_CHAIN_CASES = ("self_k1", "ab_k4")
+ANY_FAULT_SEED = 5
+ANY_FAULTS = dict(n_rounds=64, n_workers=4, p_worker_crash=0.15,
+                  p_round_failure=0.3, max_round_failures=2,
+                  p_checkpoint_kill=0.2, p_checkpoint_flip=0.2)
+ANY_SUPERVISED_CASES = ("self_k1", "ab_k4")
+# the workers that sweep their chunk of round 1; the rest are idle
+ANY_IDLE = ((0, 2), (3,), ())
+ANY_IDLE_CASES = ("self_k1", "ab_k1", "self_k4", "ab_k4")
+
+
+def any_series():
+    """The twin's series: n = 600 and 250, as `test_distributed_mp.py`."""
+    rng = np.random.default_rng(1)
+    ts = np.cumsum(rng.normal(size=600)).astype(np.float32)
+    ts_b = np.cumsum(rng.normal(size=250)).astype(np.float32)
+    return ts, ts_b
+
+
+def any_make(cls, devices, case, ts=None, **kw):
+    """`cls`, either package's `AnytimeScheduler`, for an ANY_CASES case;
+    `devices` is the port's device list or mesh, or the reference's
+    mesh."""
+    ab, k = ANY_CASES[case]
+    a, b = any_series()
+    return cls(a if ts is None else ts, ANY_M, devices,
+               ts_b=b if ab else None, k=k, **{**ANY_KW, **kw})
+
+
+def _hex(x):
+    a = np.ascontiguousarray(x.cpu().numpy() if hasattr(x, "cpu")
+                             else np.asarray(x))
+    return [a.dtype.str, list(a.shape), a.tobytes().hex()]
+
+
+def any_array(h):
+    """The array `_hex` wrote, bits unchanged."""
+    dt, shape, data = h
+    return np.frombuffer(bytes.fromhex(data), dtype=dt).reshape(shape)
+
+
+def any_states(states):
+    """Running states (a side may be None) with their bits."""
+    return [None if st is None else [_hex(st.corr), _hex(st.index)]
+            for st in states]
+
+
+def any_dump(state):
+    """A `SchedulerState` with its bits."""
+    return {"frac": state.fraction_done, "done": _hex(state.done),
+            "sides": any_states((state.profile, state.profile_b))}
+
+
+def any_chain(make, ckdir):
+    """ANY_CHAIN from a fresh `make()`: the state after each step, resume
+    and run; checkpoint n goes to `ckdir/chain{n}.npz`."""
+    sch, states, n = make(), [], 0
+    for op, *arg in ANY_CHAIN:
+        if op == "step":
+            sch.step_round(fail_workers=set(arg[0]))
+        elif op == "ckpt":
+            n += 1
+            sch.checkpoint(os.path.join(ckdir, f"chain{n}.npz"))
+            continue
+        elif op == "resume":
+            sch = make()
+            sch.resume(os.path.join(ckdir, f"chain{n}.npz"),
+                       n_workers=arg[0])
+        else:
+            sch.run()
+        states.append(any_dump(sch.state))
+    return states
+
+
+def any_supervised(make, path):
+    """A supervised run under the seeded schedule: its state and report."""
+    from repro_torch.core.faults import FaultInjector, FaultPolicy
+
+    sch = make()
+    sch.run_supervised(FaultPolicy(checkpoint_every=1,
+                                   worker_failure_threshold=3,
+                                   sleep=lambda _s: None),
+                       checkpoint_path=path,
+                       injector=FaultInjector.seeded(ANY_FAULT_SEED,
+                                                     **ANY_FAULTS))
+    rep = dataclasses.asdict(sch.supervised_report)
+    rep["worker_failures"] = sorted(rep["worker_failures"].items())
+    return {"state": any_dump(sch.state),
+            "report": json.loads(json.dumps(rep))}
+
+
+def any_idle(sch):
+    """Round 1's bounds with only the ANY_IDLE workers live, each applied
+    to the state after round 0: the merged states."""
+    sch.step_round()
+    k0s, k1s = sch._round_bounds(sch.plan.rounds[1])
+    out = []
+    for live in ANY_IDLE:
+        off = ~np.isin(np.arange(len(k0s)), live)
+        a0, a1 = k0s.copy(), k1s.copy()
+        a0[off] = a1[off] = sch._k_empty
+        out.append(any_states(sch._run_round(sch.state, a0, a1)))
+    return out
+
+
+def any_tie_states(rank):
+    """Rank `rank`'s states for the merges' tie rules: correlations that
+    tie across ranks, indices that tell the ranks apart ((l,) and
+    (l, 3))."""
+    import torch
+
+    from repro_torch.core.matrix_profile import NEG, ProfileState, TopKState
+
+    i32 = torch.int32
+    one = ProfileState(
+        torch.tensor([0.5, 0.9 if rank % 2 else 0.8, 0.3, NEG]),
+        torch.tensor([rank, 4 - rank, 2 * rank, -1], dtype=i32))
+    topk = TopKState(
+        torch.tensor([[0.9, 0.9, 0.1], [0.7, 0.2 + 0.1 * rank, NEG]]),
+        torch.tensor([[rank, 10 + rank, 20 + rank], [30 + rank, 40 + rank,
+                                                     -1]], dtype=i32))
+    return one, topk
+
+
+def _own_index_pmax(state, group):
+    """A planted fault: the correlations' all-reduce without the index
+    reduction, each rank keeping its own index."""
+    import torch.distributed as dist
+
+    from repro_torch.core.matrix_profile import ProfileState
+
+    gmax = state.corr.clone()
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    return ProfileState(gmax, state.index.clone())
+
+
+def _gathered(value):
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, value)
+    return got
+
+
+def _raised(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def suite_anytime(mesh):
+    """The scheduler with one rank per worker: every case round by round,
+    each rank's final state, the failure and resume chains, supervised
+    runs, rounds with idle ranks, the merges' tie rules, the guard against
+    ranks given different series or plans, a device list under the group,
+    and the planted index-reduction fault."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.core import plan as tplan
+    from repro_torch.core.scheduler import AnytimeScheduler
+
+    ckdir = os.path.join(os.environ["MESH_WORKER_TMP"], "anytime_ckpt")
+
+    def mk(case, **kw):
+        return any_make(AnytimeScheduler, mesh, case, **kw)
+
+    out = {"rounds": {}, "final_crc": {}, "chain": {}, "supervised": {},
+           "idle": {}}
+    for case in ANY_CASES:
+        sch = mk(case)
+        out["rounds"][case] = [any_dump(sch.step_round())
+                               for _ in range(sch.plan.n_rounds)]
+        out["final_crc"][case] = _gathered(zlib.crc32(json.dumps(
+            any_dump(sch.state)).encode()))
+    for case in ANY_CHAIN_CASES:
+        d = os.path.join(ckdir, case)
+        os.makedirs(d, exist_ok=True)
+        out["chain"][case] = any_chain(lambda: mk(case), d)
+    for case in ANY_SUPERVISED_CASES:
+        out["supervised"][case] = any_supervised(
+            lambda: mk(case), os.path.join(ckdir, f"sup_{case}.npz"))
+    for case in ANY_IDLE_CASES:
+        out["idle"][case] = any_idle(mk(case))
+    group, size, rank = distributed._worker_group(mesh)
+    one, topk = any_tie_states(rank)
+    out["ties"] = any_states((distributed._pmax_group(one, group),
+                              distributed._allreduce_topk_group(topk, group,
+                                                                size)))
+    ts, _ = any_series()
+    bent = ts.copy()
+    bent[123] += 1.0
+    rank = dist.get_rank()
+    out["guard"] = {
+        "series": _gathered(_raised(
+            lambda: mk("self_k1", ts=bent if rank == 2 else None))),
+        "band": _gathered(_raised(
+            lambda: mk("self_k1", band=32 if rank == 1 else 16)))}
+    out["too_many_workers"] = _gathered(_raised(
+        lambda: mk("self_k1").resume(
+            os.path.join(ckdir, "self_k1", "chain1.npz"), n_workers=5)))
+    plan = dataclasses.replace(tplan.plan_sweep(
+        ANY_M, 581, backend="distributed", device="cpu"), n_bands=2)
+    out["device_list"] = {
+        "scheduler": _raised(lambda: AnytimeScheduler(ts, ANY_M,
+                                                      ["cpu"] * 4,
+                                                      **ANY_KW)),
+        "round_executor": _raised(lambda: tplan.round_executor(plan,
+                                                               ["cpu"]))}
+    saved = distributed._pmax_group
+    distributed._pmax_group = _own_index_pmax
+    try:
+        sch = mk("self_k1")
+        out["planted"] = [any_dump(sch.step_round())
+                          for _ in range(sch.plan.n_rounds)]
+    finally:
+        distributed._pmax_group = saved
+    return out
+
+
+def suite_one_rank(mesh):
+    """A one-rank group: nothing is left unported, `round_executor` takes
+    the mesh, and each case runs to its end."""
+    from repro_torch.core import plan as tplan
+    from repro_torch.core.scheduler import AnytimeScheduler
+
+    plan = dataclasses.replace(tplan.plan_sweep(
+        ANY_M, 581, backend="distributed", device="cpu"), n_bands=2)
+    out = {"not_ported": dict(tplan._NOT_PORTED),
+           "executor": callable(tplan.round_executor(plan, mesh)),
+           "runs": {}}
+    for case in ANY_CASES:
+        sch = any_make(AnytimeScheduler, mesh, case)
+        out["runs"][case] = any_dump(sch.run())
+    return out
+
+
+def reference_anytime(out_path):
+    """The reference's scheduler on 4 forced host devices: every case round
+    by round, and the group's first chain checkpoint resumed and run."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    from repro.core.scheduler import AnytimeScheduler
+    from repro.launch.mesh import compat_mesh
+
+    mesh = compat_mesh((4,), ("workers",))
+    out = {"rounds": {}}
+    for case in ANY_CASES:
+        sch = any_make(AnytimeScheduler, mesh, case)
+        out["rounds"][case] = [any_dump(sch.step_round())
+                               for _ in range(sch.plan.n_rounds)]
+    sch = any_make(AnytimeScheduler, mesh, "self_k1")
+    sch.resume(os.path.join(os.environ["MESH_WORKER_TMP"], "anytime_ckpt",
+                            "self_k1", "chain1.npz"))
+    out["resumed"] = any_dump(sch.run())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
 def reference_side(out_path, part):
     """The reference's side, in a process of its own with 4 forced host
     devices on a 2 x 2 (data, model) mesh: its MoE (`moe_ffn` under each
     rule set, and `_moe_local` unsharded) on the twin's inputs, and the
     collectives of each smoke config's compiled train-mode forward at
     (2, 16) tokens under TP rules, with the scanned layer body's
-    collectives marked (XLA lists a while body once)."""
+    collectives marked (XLA lists a while body once). The `anytime` part
+    is `reference_anytime`'s."""
+    if part == "anytime":
+        return reference_anytime(out_path)
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
@@ -487,12 +771,18 @@ def main():
     if suite == "trace":
         start_fake_group(world)
         mesh = compat_mesh((2, 2), ("data", "model"))
+    elif suite in ANY_SUITES:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=ANY_TIMEOUT_S))
+        mesh = compat_mesh((world,), ("workers",), devices="cpu")
     else:
         dist.init_process_group("gloo", store=dist.FileStore(store, world),
                                 rank=rank, world_size=world)
         mesh = compat_mesh((2, 2), ("data", "model"), devices="cpu")
-    res = {"moe": suite_moe, "steps": suite_steps,
-           "trace": suite_trace}[suite](mesh)
+    res = {"moe": suite_moe, "steps": suite_steps, "trace": suite_trace,
+           "anytime": suite_anytime, "one_rank": suite_one_rank}[suite](mesh)
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(res, f)

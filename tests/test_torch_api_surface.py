@@ -78,24 +78,29 @@ def test_entry_points_return_profile_result():
     assert "normalize" in inspect.signature(tcore.matrix_profile).parameters
 
 
-def test_only_distributed_plans_are_refused(monkeypatch):
-    """Distributed plans are planned; only their round executor under a
-    multi-process `torch.distributed` group is refused, naming ROADMAP.md
-    §A6 (ii)."""
+def test_only_distributed_plans_are_refused(monkeypatch, tmp_path):
+    """Nothing of the planner is left unported: distributed plans are
+    planned, and their round executor takes a device list in one process
+    or a 1-D mesh of ranks (a one-rank gloo group, in a subprocess, runs
+    it). Under a multi-rank group a device list raises `ValueError`
+    naming the mesh, where it would run every worker on each rank."""
     import dataclasses as dc
 
     import torch
 
+    from _torch_mesh_run import run_suite
     from repro_torch.core import plan
 
-    assert set(plan._NOT_PORTED) == {"multi-process"}
+    assert plan._NOT_PORTED == {}
     p = plan.plan_sweep(16, 300, backend="distributed", device="cpu")
     assert p.backend == "distributed"
     runner = plan.round_executor(dc.replace(p, n_bands=2), ["cpu"])
     assert callable(runner)
+    one = run_suite("one_rank", tmp_path, world=1, timeout=240)
+    assert one["not_ported"] == {} and one["executor"]
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A6 \(ii\)"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         plan.round_executor(dc.replace(p, n_bands=2), ["cpu"])
 
 

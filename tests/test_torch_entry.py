@@ -182,13 +182,15 @@ def test_recompute_path_matches_eager():
 ])
 def test_not_ported_raises(kw, match, monkeypatch):
     if kw.get("backend") == "distributed":
-        # distributed plans are planned since slice 9; their round executor
-        # refuses a multi-process group (ROADMAP.md §A6 (ii))
+        # distributed plans are planned since slice 9 and run over a group
+        # since slice 16 (ROADMAP.md §A6 (ii)); under a multi-process group
+        # the round executor refuses a device list, which would run every
+        # worker on each rank, and asks for a worker mesh
         plan = tplan.plan_sweep(16, 300, device="cpu", **kw)
         monkeypatch.setattr(torch.distributed, "is_initialized",
                             lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             tplan.round_executor(dataclasses.replace(plan, n_bands=1),
                                  ["cpu"])
         return

@@ -15,7 +15,9 @@
     `tests/test_checkpoint.py:115-225`;
   * checkpoints across the two packages: the same keys and meta, the same
     `done` bytes and crc32s, each package resuming the other's file;
-  * the distributed plan and `round_executor`'s refusals.
+  * the distributed plan and `round_executor`'s refusals; a one-rank
+    group's mesh runs the one-process bits, and a device list under a
+    group of more ranks raises.
 
 The `gpu`-marked tests hold kernel chunks bit for bit one launch, and a
 supervised run bit for bit a clean one, on the card; they skip here.
@@ -44,6 +46,9 @@ from repro_torch.core.scheduler import CHECKPOINT_FORMAT, AnytimeScheduler
 from repro_torch.core.zstats import (compute_cross_stats_host,
                                      compute_stats_host, dist_to_corr)
 from repro_torch.kernels import natsa_mp, ops
+
+from _torch_mesh_run import run_suite
+from _torch_mesh_worker import any_dump, any_make
 
 TOL_CORR = 1e-4      # the reference's own kernel standard, in correlation
 NO_SLEEP = dict(sleep=lambda _t: None)
@@ -541,7 +546,7 @@ def test_kernel_chunk_plan_refuses_the_engine_options(kind, option):
         assert port.reseed_every == 64
 
 
-def test_execute_and_round_executor_refusals(monkeypatch):
+def test_execute_and_round_executor_refusals(monkeypatch, tmp_path):
     plan = tplan.plan_sweep(16, 285, backend="distributed", device="cpu")
     stats = compute_stats_host(walk(300, 3), 16, device="cpu")
     with pytest.raises(ValueError, match="round-by-round"):
@@ -557,11 +562,19 @@ def test_execute_and_round_executor_refusals(monkeypatch):
     fn = tplan.round_executor(planned, ["cpu", "cpu"])
     with pytest.raises(ValueError, match="one \\(k0, k1\\) per worker"):
         fn(stats, ProfileState.empty(285), [4], [20])
-    assert set(tplan._NOT_PORTED) == {"multi-process"}
+    assert tplan._NOT_PORTED == {}
+    # a one-rank group (a subprocess): the scheduler over the mesh runs
+    # every case to the one-process scheduler's bits
+    one = run_suite("one_rank", tmp_path, world=1, timeout=240)
+    for case, got in one["runs"].items():
+        sch = any_make(AnytimeScheduler, ["cpu"], case)
+        assert json.dumps(got) == json.dumps(any_dump(sch.run())), case
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A6 \(ii\)"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tplan.round_executor(planned, ["cpu"])
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        AnytimeScheduler(walk(300, 3), 16, ["cpu"])
 
 
 def test_round_fn_merges_workers_with_the_reference_tie_rules():
