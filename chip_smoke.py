@@ -252,10 +252,29 @@ Phases, each printing one JSON line:
      tokens bit for bit the ctx=None path's on the same weights, 16
      wgmma flash launches a prefill on the rank's heads; `prefill_s`,
      `step_ms` with and without the ctx, CommDebugMode's counts;
+ 28b, 29b, 31b. `main_lm_sp` (inside phases 28, 29 and 31, on their
+     models): Megatron-SP (`layout="sp"`) through a one-rank NCCL group
+     and `compat_mesh((1, 1))`: one request of LM_SP_S tokens (whisper's
+     with its frames) through `make_prefill_step(cfg, ctx)` against the
+     ctx=None prefill on the same weights, the last-position logits, the
+     greedy token and every cache leaf bit for bit, LM_SP_FLASH flash
+     launches (0 rwkv6-3b, 2 jamba, 64 whisper), `prefill_s` of both;
+ 29c. `main_lm_long` (inside phase 29, after its `main_lm_sp`):
+     jamba-v0.1-52b's long_500k decode (batch 1, 524,288 slots) at 16
+     layers under the SP decode flip's rule table (`batch` None,
+     `kv_seq` "data"; set by the phase: one rank cannot reach the flip by
+     the rule) against ctx=None, each over its own cache TILED from
+     `main_lm_sp`'s ctx=None prefill (16 x 32,768 K/V; not a
+     524,288-token prefill), LM_LONG_STEPS greedy steps, logits within
+     2^-5 max|logits| (the flip fed ctx=None's picks), the merge at both
+     attention layers every step, `step_ms` of both beside the bound from
+     `hbm_bytes_floor`, peak memory, no kernel launch;
  32b. `dryrun_host` (after phase 32's training ones): `python -m
-     repro_torch.launch.dryrun` for llama3-8b at DRYRUN_HOST_CELLS on the
-     single-pod mesh in a subprocess on the CPU (a fake 256-rank group):
-     each record's memory, collectives, roofline terms and seconds;
+     repro_torch.launch.dryrun` for DRYRUN_HOST_CELLS (llama3-8b's
+     prefill_32k and decode_32k, jamba-v0.1-52b's long_500k under the
+     flip) on the single-pod mesh in a subprocess on the CPU (a fake
+     256-rank group): each record's memory, collectives, roofline terms
+     and seconds;
  33. `{"phase": "wall"}`: the script's wall seconds so far; then
      `{"kernels": [...]}`: each ported kernel with its launches on every
      path (0 on phases 9-15 but the z-normalized streaming query, which
@@ -264,8 +283,9 @@ Phases, each printing one JSON line:
      process or through the group; 72 for the serve example; flash
      one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
      olmoe-1b-7b, through the mesh too, 2 for jamba at 16 layers, 28 for
-     qwen2-vl-2b, 64 for whisper-large-v3 with its encoder, 0 for MLA and
-     RWKV6), 2 per layer per microbatch of a train step), its error
+     qwen2-vl-2b, 64 for whisper-large-v3 with its encoder, the same under
+     `sp`, 0 for MLA and RWKV6 and for every decode step), 2 per layer per
+     microbatch of a train step), its error
      against the plain version and its times beside its bound.
 Every kernel launch counter is set to 0 just before each path and read just
 after it. The last line is `{"ok": true, "device": {...}}`. Any failed check
@@ -567,7 +587,37 @@ LM_ENCDEC_PLAIN_S = 4096
 # prefill_32k and decode_32k on the fake 256-rank single-pod mesh.
 LM_MESH_B, LM_MESH_DECODE = 2, 16
 LM_MESH_LAYOUTS = ("tp", "ep")
-DRYRUN_HOST_CELLS = ("prefill_32k", "decode_32k")
+DRYRUN_HOST_CELLS = (("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"),
+                     ("jamba-v0.1-52b", "long_500k"))
+
+# main_lm_sp (ROADMAP.md §A9 (iv)): Megatron-SP (`layout="sp"`: the
+# residual split on the sequence over the model axis) through a one-rank
+# NCCL mesh against ctx=None on the same weights, one request of LM_SP_S
+# tokens: jamba-v0.1-52b (main_lm_jamba's 16 layers: Mamba, attention and
+# MoE), rwkv6-3b (main_lm_rwkv's: time and channel mixing) and
+# whisper-large-v3 (main_lm_whisper's, with 1,500 frames: its encoder's
+# frames split too, and cross attention), each prefill_32k cut from batch
+# 32 to 1 by time (rwkv6-3b's chunk loop is host bound, ~12 s a run by
+# its 16,384 chunk steps). On one rank every collective is an identity,
+# so the logits, the greedy token and the cache must equal ctx=None's bit
+# for bit; each prefill launches LM_SP_FLASH[arch] flash kernels.
+# main_lm_long: jamba-v0.1-52b's long_500k cell (configs/base.py:166:
+# batch 1, 524,288 slots; configs/jamba_v01_52b.py keeps it, "seq-sharded
+# KV, O(1) SSM") at 16 layers, LM_LONG_STEPS greedy steps under the SP
+# decode flip's rule table (batch replicated, `kv_seq` over "data"). One
+# rank cannot reach the flip by `make_rules` (batch 1 is not below 1 data
+# rank), so the phase sets the flip table's two entries itself. The cache
+# is TILED, not prefilled: the K/V of main_lm_sp's 32,768-token ctx=None
+# prefill repeated 16 times along the sequence (jamba has no RoPE, so a
+# tile carries no position), its Mamba states as they are, and
+# `cache_len` set so that the steps write the last LM_LONG_STEPS slots. A
+# prefill of 524,288 tokens would need a sequence-chunked prefill the port
+# lacks (its MoE buckets alone ~30 GB). The flip path and the ctx=None
+# path each get their own cache (decode writes it in place), one after
+# the other; their logits within TOL_LM_BF16 of max|logits|.
+LM_SP_S, LM_SP_WARM = 32768, 2048
+LM_SP_FLASH = {LM_JAMBA_ARCH: 2, LM_RWKV_ARCH: 0, LM_WHISPER_ARCH: 64}
+LM_LONG_STEPS = 16
 FRAMES_SCALE = 0.02       # the reference trainer's frames (launch/train.py:78)
 
 # The training path (ROADMAP.md §A9 (ii)): train_4k (configs/base.py:166)
@@ -4937,9 +4987,6 @@ def _mesh_path(cfg, model, tokens, n: int, ctx) -> dict:
 
     from repro_torch.models import steps, transformer
 
-    def whole(t):
-        return t.full_tensor() if hasattr(t, "full_tensor") else t
-
     def local(t):
         return t.to_local() if hasattr(t, "to_local") else t
 
@@ -4958,8 +5005,8 @@ def _mesh_path(cfg, model, tokens, n: int, ctx) -> dict:
         for key, t in pc.items():
             local(layer[key])[:, :s] = local(t)
     del cache
-    logits = [whole(lg)[:, -1].float()]
-    toks = [steps.greedy_next(whole(lg))]
+    logits = [_whole(lg)[:, -1].float()]
+    toks = [steps.greedy_next(_whole(lg))]
     reset_counts()
     ms = []
     for i in range(n):
@@ -4968,8 +5015,8 @@ def _mesh_path(cfg, model, tokens, n: int, ctx) -> dict:
         lg, big = dec(model, big, {"tokens": toks[-1], "cache_len": s + i})
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
-        logits.append(whole(lg)[:, -1].float())
-        toks.append(steps.greedy_next(whole(lg)))
+        logits.append(_whole(lg)[:, -1].float())
+        toks.append(steps.greedy_next(_whole(lg)))
     dec_counts = read_counts()
     del big
     return {"logits": torch.stack(logits), "tokens": torch.cat(toks, 1),
@@ -5142,9 +5189,286 @@ def _undistribute(model, saved: dict) -> None:
         mod._parameters[name] = p
 
 
+def _one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over the one-rank NCCL group (which
+    `compat_mesh` starts where none is up)."""
+    from repro_torch.launch import mesh as lmesh
+
+    return lmesh.compat_mesh((1, 1), ("data", "model"))
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _sp_prefill(cfg, model, batch, ctx) -> dict:
+    """One prefill through `make_prefill_step(cfg, ctx)`, counted and
+    timed: its last-position logits and its cache, whole."""
+    import torch
+
+    from repro_torch.models import steps
+
+    step = steps.make_prefill_step(cfg, ctx)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lg, cache = step(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    return {"logits": _whole(lg), "prefill_s": prefill_s, "counts": counts,
+            "cache": [{k: _whole(t) for k, t in layer.items()}
+                      for layer in cache]}
+
+
+def phase_lm_sp(model, cfg, seed: int, *, keep: bool = False) -> dict:
+    """main_lm_sp: one request of LM_SP_S tokens (with whisper's frames)
+    through `make_prefill_step(cfg)` and then through the one-rank mesh
+    under `layout="sp"` (the weights distributed by `param_shardings`, a
+    short prefill first to warm the path), bit for bit: the last-position
+    logits, the greedy token and every cache leaf; LM_SP_FLASH[arch] wgmma
+    flash launches a prefill; `prefill_s` of both. With `keep`, the
+    ctx=None prefill's logits and cache come back too (main_lm_long tiles
+    them)."""
+    import torch
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import steps
+
+    s = LM_SP_S
+    rng = np.random.default_rng(seed)
+    tokens, extras = _lm_tokens(rng, cfg, 1, s), _lm_extras(cfg, 1, s, rng)
+    batch = {"tokens": tokens, **extras}
+    plain = _sp_prefill(cfg, model, batch, None)
+    mesh = _one_rank_mesh()
+    ctx = sh.make_ctx(mesh, cfg, None, layout="sp")
+    saved = dict(model.named_parameters())
+    sh.distribute_params(model, mesh, cfg, ctx.rules)
+    try:
+        warm = {"tokens": tokens[:, :LM_SP_WARM],
+                **_rows(extras, slice(None), slice(0, LM_SP_WARM))}
+        steps.make_prefill_step(cfg, ctx)(model, warm)
+        got = _sp_prefill(cfg, model, batch, ctx)
+    finally:
+        _undistribute(model, saved)
+    torch.cuda.empty_cache()
+    same_logits = torch.equal(got["logits"], plain["logits"])
+    same_token = torch.equal(steps.greedy_next(got["logits"]),
+                             steps.greedy_next(plain["logits"]))
+    leaves = [(i, k) for i, layer in enumerate(plain["cache"])
+              for k in layer]
+    differ = [f"{i}.{k}" for i, k in leaves
+              if not torch.equal(got["cache"][i][k], plain["cache"][i][k])]
+    want = LM_SP_FLASH[cfg.name]
+    out = {"phase": "main_lm_sp", "arch": cfg.name, "layers": cfg.n_layers,
+           "card": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
+           "batch": 1, "seq_len": s, "layout": "sp",
+           "logits_bitwise": same_logits, "token_bitwise": same_token,
+           "cache_leaves": len(leaves), "cache_leaves_differ": differ,
+           "max_abs_logit_diff": float((got["logits"].float()
+                                        - plain["logits"].float())
+                                       .abs().max()),
+           "plain_prefill_s": plain["prefill_s"],
+           "prefill_s": got["prefill_s"],
+           "prefill_s_ratio": got["prefill_s"] / plain["prefill_s"],
+           "counts": got["counts"], "plain_counts": plain["counts"],
+           "flash_launches": got["counts"]["flash_attn"]}
+    emit(out)
+    check(same_logits and same_token and not differ,
+          f"{cfg.name} sp prefill differs from ctx=None: logits "
+          f"{out['max_abs_logit_diff']}, cache leaves {differ[:8]}")
+    check(got["counts"]["flash_attn_routes"] == {"wgmma": want, "fma": 0}
+          and got["counts"]["natsa_mp"] == 0
+          and plain["counts"] == got["counts"],
+          f"{cfg.name} sp prefill launches {got['counts']}, want {want}")
+    if keep:
+        out["kept"] = plain
+    return out
+
+
+def _tile_cache(cfg, cache, pre) -> None:
+    """The prefill cache `pre` (p slots) into `cache` (S = r · p slots,
+    local tensors): each sequence leaf's K/V repeated r times along the
+    sequence, a state leaf whole."""
+    from repro_torch.models import transformer
+
+    for i, (layer, pc) in enumerate(zip(cache, pre)):
+        spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), 1, 1)
+        for key, t in pc.items():
+            dst = layer[key].to_local() if hasattr(layer[key], "to_local") \
+                else layer[key]
+            if _leaf_kind(spec[key]) == "seq":
+                p = t.shape[1]
+                dst.unflatten(1, (dst.shape[1] // p, p)).copy_(
+                    t.unsqueeze(1))
+            else:
+                dst.copy_(t)
+
+
+def _long_decode(cfg, model, pre, first, ctx, tokens=None) -> dict:
+    """LM_LONG_STEPS greedy decode steps over a cache of the long_500k
+    slots tiled from `pre` (`_tile_cache`), from token `first`, the last
+    LM_LONG_STEPS slots written; with `tokens` the steps take those
+    tokens (teacher-forced) instead of their own picks. A step over a
+    small cache first warms the path. Per step: the logits (f32) and ms;
+    the launch counts of the steps."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import steps, transformer
+
+    slots, n = SHAPES["long_500k"].seq_len, LM_LONG_STEPS
+    dec = steps.make_decode_step(cfg, ctx)
+    small = transformer.init_cache(cfg, model, 1, 4096, ctx=ctx)
+    dec(model, small, {"tokens": first, "cache_len": 0})
+    del small
+    cache = transformer.init_cache(cfg, model, 1, slots, ctx=ctx)
+    _tile_cache(cfg, cache, pre)
+    torch.cuda.synchronize()
+    reset_counts()
+    nxt, logits, picks, ms = first, [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = dec(model, cache, {"tokens": nxt,
+                                       "cache_len": slots - n + i})
+        lg = _whole(lg)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(lg[:, -1].float())
+        picks.append(steps.greedy_next(lg))
+        nxt = picks[-1] if tokens is None else tokens[:, i:i + 1]
+    counts = read_counts()
+    placements = (str(tuple(cache[_first_attn(cfg)]["k"].placements))
+                  if ctx is not None else None)
+    del cache
+    return {"logits": torch.cat(logits), "picks": torch.cat(picks, 1),
+            "step_ms": ms, "counts": counts, "k_placements": placements}
+
+
+def _first_attn(cfg) -> int:
+    return next(i for i in range(cfg.n_layers)
+                if cfg.layer_kind(i).mixer == "attn")
+
+
+class _MergeCount:
+    """Counts `parallel.softmax_merge` calls while active (the flip's
+    log-sum-exp merge, one per attention layer per decode step)."""
+
+    def __init__(self):
+        self.n, self.real = 0, None
+
+    def __enter__(self):
+        from repro_torch.models import parallel
+
+        self.real = parallel.softmax_merge
+
+        def counted(lg, group):
+            self.n += 1
+            return self.real(lg, group)
+
+        parallel.softmax_merge = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import parallel
+
+        parallel.softmax_merge = self.real
+
+
+def phase_lm_long(model, cfg, kept: dict) -> dict:
+    """main_lm_long: jamba-v0.1-52b's long_500k decode (batch 1, 524,288
+    slots) at 16 layers on main_lm_jamba's weights, under the SP decode
+    flip's rule table on the one-rank NCCL mesh (`make_ctx`'s table with
+    `batch` None and `kv_seq` "data", which one rank cannot reach by the
+    rule: global batch 1 is not below 1 data rank), against ctx=None: the
+    cache tiled from main_lm_sp's ctx=None prefill (`kept`; not a
+    524,288-token prefill), LM_LONG_STEPS greedy steps on ctx=None, the
+    flip path fed the same tokens; every step's logits within TOL_LM_BF16
+    of max|logits|, greedy picks differing only at near-ties; the flip's
+    merge ran at both attention layers every step (its cache's K/V split
+    on the sequence over "data", `Shard(1)`); `step_ms` (median, max) of
+    both beside the bound from `hbm_bytes_floor` at long_500k (3.35 TB/s);
+    `peak_device_bytes` over both runs; no kernel launch."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import steps
+    from repro_torch.utils import flops
+
+    shape = SHAPES["long_500k"]
+    pre, first = kept["cache"], steps.greedy_next(kept["logits"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = _long_decode(cfg, model, pre, first, None)
+    torch.cuda.empty_cache()
+    mesh = _one_rank_mesh()
+    ctx = sh.make_ctx(mesh, cfg, None)
+    ctx = dataclasses.replace(ctx, rules=dict(ctx.rules, batch=None,
+                                              kv_seq="data"))
+    saved = dict(model.named_parameters())
+    sh.distribute_params(model, mesh, cfg, ctx.rules)
+    try:
+        with _MergeCount() as merges:
+            got = _long_decode(cfg, model, pre, first, ctx,
+                               tokens=plain["picks"])
+    finally:
+        _undistribute(model, saved)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    vs = _logits_vs(got["logits"], plain["logits"], TOL_LM_BF16)
+    n, attn = LM_LONG_STEPS, _attn_layers(cfg)
+    floor = flops.hbm_bytes_floor(cfg, shape, 1)
+    bound_ms = 1e3 * floor / HBM_RATE
+    med, med0 = float(np.median(got["step_ms"])), float(np.median(
+        plain["step_ms"]))
+    out = {"phase": "main_lm_long", "cell": "long_500k", "arch": cfg.name,
+           "layers": cfg.n_layers, "attn_layers": attn,
+           "card": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
+           "batch": shape.global_batch, "cache_slots": shape.seq_len,
+           "steps": n, "cache": f"tiled {shape.seq_len // LM_SP_S} x "
+           f"{LM_SP_S}-token prefill (not a {shape.seq_len}-token prefill)",
+           "rules": {k: ctx.rules[k] for k in ("batch", "kv_seq")},
+           "k_placements": got["k_placements"], "merges": merges.n,
+           "vs_plain": vs, "step_ms": got["step_ms"], "step_ms_median": med,
+           "step_ms_max": max(got["step_ms"]),
+           "plain_step_ms": plain["step_ms"], "plain_step_ms_median": med0,
+           "plain_step_ms_max": max(plain["step_ms"]),
+           "step_ms_ratio": med / med0, "bound_ms": bound_ms,
+           "bound_by": "bytes", "floor_bytes": floor,
+           "share_of_bound": bound_ms / med,
+           "kv_bytes": _cache_bytes(cfg, 1, shape.seq_len, kind="seq"),
+           "peak_device_bytes": peak, "counts": got["counts"],
+           "plain_counts": plain["counts"],
+           "tokens": plain["picks"][0].tolist()}
+    emit(out)
+    check(vs["ok"], f"long_500k flip decode vs ctx=None: {vs}")
+    # the merge runs at every attention layer of every step, the warm-up
+    # step's too
+    check(merges.n == (n + 1) * attn
+          and "Shard(dim=1)" in str(got["k_placements"]),
+          f"the flip's merge ran {merges.n} times (want {(n + 1) * attn}), "
+          f"K placed {got['k_placements']}")
+    check(got["counts"]["natsa_mp"] == 0 and got["counts"]["flash_attn"] == 0
+          and bool(torch.isfinite(got["logits"]).all()),
+          f"long_500k decode launches {got['counts']} / logits not finite")
+    return out
+
+
+def _jamba_then(model, cfg) -> dict:
+    """main_lm_jamba's model, then: main_lm_sp, then main_lm_long over a
+    cache tiled from main_lm_sp's ctx=None prefill."""
+    sp = phase_lm_sp(model, cfg, SEED + 160, keep=True)
+    kept = sp.pop("kept")
+    return {"sp": sp, "long": phase_lm_long(model, cfg, kept)}
+
+
 def phase_dryrun_host() -> dict:
     """dryrun_host: `repro_torch.launch.dryrun.run_cell` in one subprocess
-    (the CPU, a fake 256-rank group) for llama3-8b at DRYRUN_HOST_CELLS
+    (the CPU, a fake 256-rank group) for DRYRUN_HOST_CELLS (llama3-8b's
+    prefill_32k and decode_32k, and jamba-v0.1-52b's long_500k under the
+    SP decode flip: its K/V split on the sequence over the 16 data ranks)
     on the single-pod mesh; each record's memory per rank, collectives,
     roofline terms (the H100's rates) and its seconds to build and
     trace."""
@@ -5152,24 +5476,24 @@ def phase_dryrun_host() -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="")
     code = ("import sys; from repro_torch.launch import dryrun; "
-            "[dryrun.run_cell('llama3-8b', s, False, sys.argv[1], "
-            "force=True) for s in sys.argv[2:]]")
+            "[dryrun.run_cell(*c.split(':'), False, sys.argv[1], "
+            "force=True) for c in sys.argv[2:]]")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-W", "ignore", "-c", code, out_dir,
-         *DRYRUN_HOST_CELLS],
+         *[f"{a}:{s}" for a, s in DRYRUN_HOST_CELLS]],
         env=env, capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"dryrun: {proc.stdout[-2000:]}"
           f"{proc.stderr[-2000:]}")
     recs = {}
-    for shape in DRYRUN_HOST_CELLS:
+    for arch, shape in DRYRUN_HOST_CELLS:
         with open(os.path.join(out_dir,
-                               f"llama3-8b__{shape}__single.json")) as f:
+                               f"{arch}__{shape}__single.json")) as f:
             r = json.load(f)
-        check(r.get("ok"), f"dryrun {shape}: {r.get('error')}")
-        recs[shape] = {k: r[k] for k in ("memory", "collectives_raw",
-                                         "roofline", "timings")}
-    out = {"phase": "dryrun_host", "arch": "llama3-8b", "mesh": "single",
+        check(r.get("ok"), f"dryrun {arch} {shape}: {r.get('error')}")
+        recs[f"{arch}|{shape}"] = {k: r[k] for k in (
+            "ok", "memory", "collectives_raw", "roofline", "timings")}
+    out = {"phase": "dryrun_host", "mesh": "single",
            "cells": recs, "wall_s": time.perf_counter() - t0}
     emit(out)
     return out
@@ -5177,6 +5501,7 @@ def phase_dryrun_host() -> dict:
 
 def main() -> None:
     import torch
+    import torch.distributed as dist
 
     # the plain versions' f32 products run in full f32 (no TF32); bf16
     # products reduce in f32 (the LM phases print both settings)
@@ -5219,16 +5544,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm_rwkv = _lm_serving(LM_RWKV_ARCH, "main_lm_rwkv", "main_lm_rwkv",
                           LM_RWKV_PREFILL_B, SEED + 90,
-                          prompt=LM_RWKV_DECODE_PROMPT)
+                          prompt=LM_RWKV_DECODE_PROMPT,
+                          then=lambda m, c: phase_lm_sp(m, c, SEED + 170))
     lm_jamba = _lm_serving(LM_JAMBA_ARCH, "main_lm_jamba", "main_lm_jamba",
                            LM_JAMBA_PREFILL_B, SEED + 100,
                            layers=LM_JAMBA_LAYERS,
-                           prompt=LM_JAMBA_DECODE_PROMPT)
+                           prompt=LM_JAMBA_DECODE_PROMPT, then=_jamba_then)
     encdec_plain = phase_lm_encdec_vs_plain()
     torch.cuda.empty_cache()
     lm_whisper = _lm_serving(LM_WHISPER_ARCH, "main_lm_whisper",
                              "main_lm_whisper", LM_WHISPER_PREFILL_B,
-                             SEED + 130, prompt=LM_WHISPER_PROMPT)
+                             SEED + 130, prompt=LM_WHISPER_PROMPT,
+                             then=lambda m, c: phase_lm_sp(m, c, SEED + 180))
+    dist.destroy_process_group()      # the one-rank group of main_lm_sp
+    lm_sp = {LM_RWKV_ARCH: lm_rwkv["then"],
+             LM_JAMBA_ARCH: lm_jamba["then"]["sp"],
+             LM_WHISPER_ARCH: lm_whisper["then"]}
+    lm_long = lm_jamba["then"]["long"]
     lm_qwen_vl = _lm_serving(LM_QWEN_VL_ARCH, "main_lm_qwen2vl",
                              "main_lm_qwen2vl", LM_QWEN_VL_PREFILL_B,
                              SEED + 140)
@@ -5274,7 +5606,10 @@ def main() -> None:
                  **{f"lm_mesh_{lay}_{ph}": {"counts": lm_mesh[lay][key]}
                     for lay in LM_MESH_LAYOUTS
                     for ph, key in (("prefill", "counts"),
-                                    ("decode", "decode_counts"))}}
+                                    ("decode", "decode_counts"))},
+                 **{f"lm_sp_{arch}": {"counts": o["counts"]}
+                    for arch, o in lm_sp.items()},
+                 "lm_long": {"counts": lm_long["counts"]}}
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "natsa_mp", "route": "cuda", "source": KERNEL_SOURCE,
@@ -5323,7 +5658,9 @@ def main() -> None:
                      + cli["counts"]["flash_attn"]
                      + sum(lm_mesh[lay][key]["flash_attn"]
                            for lay in LM_MESH_LAYOUTS
-                           for key in ("counts", "decode_counts"))),
+                           for key in ("counts", "decode_counts"))
+                     + sum(o["counts"]["flash_attn"] for o in lm_sp.values())
+                     + lm_long["counts"]["flash_attn"]),
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
                              "ab_join": ab["counts"]["flash_attn"],
                              "flash_attention": fl["launches"],
@@ -5355,6 +5692,12 @@ def main() -> None:
             "flash_launches", "prefill_s", "step_ms", "prefill_s_ratio",
             "step_ms_ratio", "logits_bitwise", "tokens_bitwise")}
             for lay in LM_MESH_LAYOUTS},
+        "lm_sp": {arch: {f: o[f] for f in (
+            "flash_launches", "prefill_s", "plain_prefill_s",
+            "prefill_s_ratio", "logits_bitwise")}
+            for arch, o in lm_sp.items()},
+        "lm_long": {f: lm_long[f] for f in (
+            "step_ms_median", "plain_step_ms_median", "bound_ms", "merges")},
         "lm_whisper_decode": {f: lm_whisper["decode"][f] for f in (
             "encode_s", "counts", "launches_by_route")},
         "lm_qwen2vl_prefill": {f: lm_qwen_vl["prefill"][f] for f in (

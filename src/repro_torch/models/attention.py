@@ -46,7 +46,15 @@ heads they read (`_kv_for_heads`), and projects those rows: a partial
 sum that leaves through the layer's all-reduce. A cache whose head dim
 is split over the model dim (KV heads that do not divide it) is read in
 decode by partial logits over the rank's slice of the head dim, summed
-by one all-reduce; MLA's latent cache, split on r, likewise.
+by one all-reduce; MLA's latent cache, split on r, likewise. Under the
+SP decode flip (`Local.kv_dim`: the data dims split every K/V and latent
+cache on its sequence, the batch replicated) a prefill computes the
+whole prompt on every rank and keeps its slots (`Local.kv_take`); a
+decode step writes the ring buffer's slot on the rank that holds it
+(`_ring`), attends over the rank's slots, and merges the ranks' partial
+softmaxes by their log-sum-exp (`parallel.softmax_merge`, then P·V
+summed over the data dims); with a head-dim split too, the logits are
+summed over the model dim first.
 
 Cross attention (`cross_spec`, `cross_full`) keeps the reference's
 uniform biases (`wq`, `wv`; no `wk` bias) and computes the grouped einsum
@@ -166,8 +174,10 @@ def _qkv(cfg, p: Tree, x, positions, lc=None, *, all_heads=False):
     return q, q0, k, k0, v, ks
 
 
-def _grouped_attn(q, k, v, mask):
-    """q: (B,Sq,H,Dh), k/v: (B,Sk,KV,Dh), mask: (B?,Sq,Sk) bool or None."""
+def _grouped_attn(q, k, v, mask, lc=None):
+    """q: (B,Sq,H,Dh), k/v: (B,Sk,KV,Dh), mask: (B?,Sq,Sk) bool or None;
+    with `lc` (decode), over the rank's slots of a sequence-split cache
+    (`_merged`)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
@@ -175,9 +185,34 @@ def _grouped_attn(q, k, v, mask):
     logits = logits / math.sqrt(hd)
     if mask is not None:
         logits = torch.where(mask[:, None, None], logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bngqk,bknd->bqngd", p.to(v.dtype), v)
+    o = _merged(logits, lambda p: torch.einsum("bngqk,bknd->bqngd", p, v),
+                v.dtype, lc)
     return o.reshape(b, sq, h, hd)
+
+
+def _merged(logits, pv, dtype, lc):
+    """pv(softmax(logits) in `dtype`): over a cache whose sequence the
+    data dims split, each rank's probabilities by the log-sum-exp merge
+    and the ranks' P·V summed in f32 (`Local.kv_softmax`, `kv_sum`)."""
+    if lc is None or lc.kv_dim is None:
+        return pv(torch.softmax(logits, dim=-1).to(dtype))
+    o = pv(lc.kv_softmax(logits).to(dtype))
+    return lc.kv_sum(o.float()).to(o.dtype)
+
+
+def _ring(lc, s_loc: int, cache_len: int, device):
+    """(the rank's index of the ring buffer's slot `cache_len % S` or None
+    where another rank holds it, the mask of its slots' keys): S = s_loc ·
+    P slots, rank r of the P that split the sequence holding [r · s_loc,
+    (r + 1) · s_loc) (P = 1 off the flip); keys past min(cache_len + 1,
+    S) masked. Every rank derives both from the same cache_len, after a
+    wrap too."""
+    n, r = (1, 0) if lc is None else (lc.kv_size, lc.kv_rank)
+    s, off = s_loc * n, r * s_loc
+    slot = cache_len % s - off
+    valid = torch.arange(off, off + s_loc, device=device) < min(cache_len + 1,
+                                                                s)
+    return (slot if 0 <= slot < s_loc else None), valid
 
 
 def _flash(q, k, v, *, causal: bool):
@@ -259,7 +294,8 @@ def gqa_prefill(cfg, p: Tree, x, positions, lc=None):
     out, k, v, k0, ks = _self_attn(cfg, p, x, positions, True, lc)
     if lc is not None:
         dims = lc.cache_dims or {}
-        k, v = (_cache_layout(t, k0, cfg.n_kv_heads, dims.get(n), lc, ks)
+        k, v = (lc.kv_take(_cache_layout(t, k0, cfg.n_kv_heads, dims.get(n),
+                                         lc, ks))
                 for t, n in ((k, "k"), (v, "v")))
     return out, {"k": k, "v": v}
 
@@ -271,9 +307,10 @@ def gqa_decode(cfg, p: Tree, x, cache: Tree, cache_len, positions,
     The new token's K/V is written at `cache_len % S` (ring buffer) IN
     PLACE: the cache's tensors are updated and returned, where the
     reference returns new arrays (a decode step would otherwise copy the
-    whole cache). Keys past `min(cache_len + 1, S)` are masked."""
+    whole cache). Keys past `min(cache_len + 1, S)` are masked. Over a
+    sequence-split cache (the flip) the rank holding the slot writes it
+    and the ranks' partial softmaxes merge (`_ring`, `_merged`)."""
     k, v = cache["k"], cache["v"]
-    s = k.shape[1]
     dims = (lc.cache_dims or {}) if lc is not None else {}
     split = dims.get("k") == 3
     q, q0, knew, k0, vnew, _ = _qkv(cfg, p, x, positions, lc,
@@ -281,12 +318,11 @@ def gqa_decode(cfg, p: Tree, x, cache: Tree, cache_len, positions,
     if lc is not None:
         knew, vnew = (_cache_layout(t, k0, cfg.n_kv_heads, dims.get(n), lc)
                       for t, n in ((knew, "k"), (vnew, "v")))
-    cache_len = int(cache_len)
-    slot = cache_len % s
-    k[:, slot] = knew[:, 0]
-    v[:, slot] = vnew[:, 0]
+    slot, valid = _ring(lc, k.shape[1], int(cache_len), k.device)
+    if slot is not None:
+        k[:, slot] = knew[:, 0]
+        v[:, slot] = vnew[:, 0]
 
-    valid = torch.arange(s, device=k.device) < min(cache_len + 1, s)
     if split:
         o = _split_dim_attn(cfg, q, k, v, valid, lc)
     else:
@@ -297,16 +333,17 @@ def gqa_decode(cfg, p: Tree, x, cache: Tree, cache_len, positions,
         k0 = _first_kv(k, cfg.n_kv_heads, lc)
         o = _grouped_attn(q, _kv_for_heads(k, k0, q0, h1, g),
                           _kv_for_heads(v, k0, q0, h1, g),
-                          valid[None, None, :])
+                          valid[None, None, :], lc)
     return _out(p, o, cfg.n_heads, q0, lc), {"k": k, "v": v}
 
 
 def _split_dim_attn(cfg, q, k, v, valid, lc):
     """One token's attention over a cache whose head dim is split over the
     model dim (B, S, KV, Dh / P): every query head's logits summed from
-    the ranks' slices by one all-reduce, the softmax, P·V on the rank's
-    slice, the slices gathered; the output on q's heads (all heads, or
-    the rank's where they split evenly)."""
+    the ranks' slices by one all-reduce, the softmax (merged over the data
+    dims where they split the sequence too), P·V on the rank's slice, the
+    slices gathered; the output on q's heads (all heads, or the rank's
+    where they split evenly)."""
     b, one, hq, hd = q.shape
     h = cfg.n_heads
     q_all = q if hq == h else lc.gather(q, 2)                 # (B,1,H,Dh)
@@ -316,8 +353,8 @@ def _split_dim_attn(cfg, q, k, v, valid, lc):
     logits = torch.einsum("bqngd,bknd->bngqk", qg.float(), k.float())
     logits = lc.reduce(logits) / math.sqrt(hd)
     logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
-    pr = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bngqk,bknd->bqngd", pr.to(v.dtype), v)
+    o = _merged(logits, lambda pr: torch.einsum("bngqk,bknd->bqngd", pr, v),
+                v.dtype, lc)
     o = lc.gather(o.reshape(b, 1, h, -1), 3)                  # (B,1,H,Dh)
     return o if hq == h else lc.take(o, 2)
 
@@ -378,19 +415,20 @@ def _mla_inputs(cfg, p, x, positions):
     return ckv, kr, qa, qr
 
 
-def _mla_attend(cfg, p, qa, qr, ckv32, kr32, ckv, mask):
+def _mla_attend(cfg, p, qa, qr, ckv32, kr32, ckv, mask, lc=None):
     """One block of query rows against keys 0..K-1: qa (B,q,H,r), qr
     (B,q,H,dr), the keys' ckv / kr in f32 (B,K,·) and ckv in its own dtype,
-    mask (B,q,K) bool or None. Returns (B, q, H, dv)."""
+    mask (B,q,K) bool or None; with `lc` (decode), over the rank's slots
+    of a sequence-split cache. Returns (B, q, H, dv)."""
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     lg = torch.einsum("bqhr,bkr->bhqk", qa.float(), ckv32)
     lg += torch.einsum("bqhe,bke->bhqk", qr.float(), kr32)
     lg *= scale
     if mask is not None:
         lg.masked_fill_(~mask[:, None], NEG_INF)
-    pr = torch.softmax(lg, dim=-1)
+    ol = _merged(lg, lambda pr: torch.einsum("bhqk,bkr->bqhr", pr, ckv),
+                 ckv.dtype, lc)
     del lg
-    ol = torch.einsum("bhqk,bkr->bqhr", pr.to(ckv.dtype), ckv)
     wuv = p["wuv"]
     ol, wuv = promote(ol, wuv)
     return torch.einsum("bqhr,rhe->bqhe", ol, wuv)
@@ -439,8 +477,9 @@ def mla_full(cfg, p: Tree, x, positions, *, causal: bool = True,
     if return_cache:
         if lc is not None:
             dims = lc.cache_dims or {}
-            ckv = ckv if dims.get("ckv") is None else lc.take(ckv, 2)
-            kr = kr if dims.get("kr") is None else lc.take(kr, 2)
+            ckv = lc.kv_take(ckv if dims.get("ckv") is None
+                             else lc.take(ckv, 2))
+            kr = lc.kv_take(kr if dims.get("kr") is None else lc.take(kr, 2))
         return out, {"ckv": ckv, "kr": kr}
     return out
 
@@ -449,7 +488,8 @@ def mla_decode(cfg, p: Tree, x, cache: Tree, cache_len, positions,
                lc=None):
     """Absorbed MLA decode of one token. x: (B, 1, D); cache ckv (B, S, r),
     kr (B, S, dr). The new entries are written at `cache_len % S` IN PLACE
-    (as `gqa_decode`); keys past `min(cache_len + 1, S)` are masked."""
+    (as `gqa_decode`, by the rank holding the slot under the flip); keys
+    past `min(cache_len + 1, S)` are masked."""
     b = x.shape[0]
     ckv, kr = cache["ckv"], cache["kr"]
     s = ckv.shape[1]
@@ -459,13 +499,12 @@ def mla_decode(cfg, p: Tree, x, cache: Tree, cache_len, positions,
                                  lc)
     p, q0 = _mla_core(cfg, p, lc) if lc is not None else (p, 0)
     ckv_new, kr_new, qa, qr = _mla_inputs(cfg, p, x, positions)
-    cache_len = int(cache_len)
-    slot = cache_len % s
-    ckv[:, slot] = ckv_new[:, 0]
-    kr[:, slot] = kr_new[:, 0]
-    valid = torch.arange(s, device=ckv.device) < min(cache_len + 1, s)
+    slot, valid = _ring(lc, s, int(cache_len), ckv.device)
+    if slot is not None:
+        ckv[:, slot] = ckv_new[:, 0]
+        kr[:, slot] = kr_new[:, 0]
     o = _mla_attend(cfg, p, qa, qr, ckv.float(), kr.float(), ckv,
-                    valid.expand(b, 1, s))
+                    valid.expand(b, 1, s), lc)
     return _out(p, o, cfg.n_heads, q0, lc), {"ckv": ckv, "kr": kr}
 
 
@@ -479,14 +518,15 @@ def _mla_decode_split(cfg, p, x, cache, cache_len, positions, lc):
     else all-reduced for the rows of `wo`'s shard. The output is partial;
     the layer's exit sums it."""
     ckv, kr = cache["ckv"], cache["kr"]
-    s = ckv.shape[1]
-    slot = cache_len % s
-    ckv[:, slot] = dense(x, p["wdkv"])[:, 0]                  # rank's r
+    slot, valid = _ring(lc, ckv.shape[1], cache_len, ckv.device)
+    ckv_new = dense(x, p["wdkv"])                             # rank's r
     kr_new = apply_rope(dense(x, p["wkr"])[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
     kr_new = kr_new if (lc.cache_dims or {}).get("kr") is None else \
         lc.take(kr_new, 2)
-    kr[:, slot] = kr_new[:, 0]
+    if slot is not None:
+        ckv[:, slot] = ckv_new[:, 0]
+        kr[:, slot] = kr_new[:, 0]
     qn, qr = _mla_q(cfg, p, x)
     qr = apply_rope(qr, positions, cfg.rope_theta)
     hq, h = qn.shape[2], cfg.n_heads
@@ -500,10 +540,9 @@ def _mla_decode_split(cfg, p, x, cache, cache_len, positions, lc):
     lg = torch.einsum("bqhr,bkr->bhqk", qa.float(), ckv.float())
     lg += torch.einsum("bqhe,bke->bhqk", qr.float(), kr.float())
     lg = lc.reduce(lg) * (1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim))
-    valid = torch.arange(s, device=ckv.device) < min(cache_len + 1, s)
     lg.masked_fill_(~valid[None, None, None, :], NEG_INF)
-    pr = torch.softmax(lg, dim=-1)
-    ol = torch.einsum("bhqk,bkr->bqhr", pr.to(ckv.dtype), ckv)
+    ol = _merged(lg, lambda pr: torch.einsum("bhqk,bkr->bqhr", pr, ckv),
+                 ckv.dtype, lc)
     wuv = p["wuv"]
     ol, wuv = promote(ol, wuv)
     o = torch.einsum("bqhr,rhe->bqhe", ol, wuv)               # partial

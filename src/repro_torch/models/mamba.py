@@ -8,6 +8,10 @@ on the rank's channels; the x_proj product partial over them and summed
 by one all-reduce (whose gradient is summed too: every rank reads it);
 the output partial through `out_proj`'s row shard. The reference's batch
 pins (`anchor`) are GSPMD constraints; a local shard keeps its batch.
+Under Megatron-SP the block takes the sequence all-gathered by the layer
+(`parallel.Local.enter`) and leaves by its reduce-scatter, so the conv
+window and the scan run on the whole sequence and the rank's channels,
+and the `conv` cache is the last kc - 1 inputs of the whole sequence.
 
 Train and prefill run the chunked selective scan: within a chunk the
 recurrence h_t = Abar_t h_{t-1} + dBx_t is an associative scan over the

@@ -26,6 +26,13 @@ on the model dim, and as a partial sum on the dims that shard the batch.
 Where a column shard cuts a head (heads that the model dim does not
 divide), a rank fetches the columns of the heads it computes from the
 ranks that hold them (`Local.exchange`, one all-to-all of activations).
+
+Long-context decode flips the data dims from the batch to the cache's
+sequence (the reference's SP rule, `launch.sharding.make_rules`): each
+rank of the dim that splits `kv_seq` (`Local.kv_dim`) holds S / P slots
+of every K/V (and MLA latent) cache, the batch is replicated, and a
+decode step attends over the rank's slots and merges the ranks' partial
+softmaxes by their log-sum-exp (`softmax_merge`, `Local.kv_sum`).
 """
 
 from __future__ import annotations
@@ -220,6 +227,26 @@ class _GradScale(torch.autograd.Function):
         return g * ctx.s, None
 
 
+def softmax_merge(lg, group):
+    """softmax over the last dim of logits whose keys are split over
+    `group`'s ranks, each holding its slice (masked keys at -1e30): the
+    rank's own probabilities, scaled so that the ranks' sum to one. Each
+    rank's row max m, its sum of exponentials l = sum exp(lg - m), then a
+    MAX all-reduce of the maxima (M) and a SUM all-reduce of the rescaled
+    sums l·exp(m - M) (L); a rank's probabilities are exp(lg - m) ·
+    exp(m - M) / L, and the caller's P·V over its keys is summed over the
+    group (`Local.kv_sum`): the log-sum-exp merge of partial attention. A
+    rank whose keys are all masked has m = -1e30 and weighs exp(m - M) =
+    0. Forward only: the flip is a decode layout, and decode runs without
+    autograd (these collectives carry no gradient)."""
+    m = lg.amax(dim=-1, keepdim=True)
+    e = torch.exp(lg - m)
+    big = _all_reduce(m, group, "max")
+    scale = torch.exp(m - big)
+    total = _all_reduce(e.sum(dim=-1, keepdim=True) * scale, group)
+    return e * (scale / total)
+
+
 # ---------------------------------------------------------------------------
 # the local view
 
@@ -230,8 +257,10 @@ class Local:
     group, its size and this rank's coordinate on it, the mesh dims that
     shard the batch, whether the residual is sharded on the sequence over
     the model dim (`seq`), whether the block at hand computes sharded
-    (`sharded`), each cache leaf's dim sharded over the model dim, and
-    whether an MoE block splits its expert bank (`ep`)."""
+    (`sharded`), each cache leaf's dim sharded over the model dim, the
+    mesh dim that splits the K/V caches' sequence (`kv_dim`, the SP
+    decode flip), and whether an MoE block splits its expert bank
+    (`ep`)."""
     mesh: Any
     tp_dim: int | None
     batch_dims: tuple[int, ...] = ()
@@ -239,6 +268,7 @@ class Local:
     sharded: bool = False
     cache_dims: Any = None
     ep: bool = False
+    kv_dim: int | None = None
 
     @property
     def group(self):
@@ -255,6 +285,15 @@ class Local:
 
     def block(self, sharded: bool) -> "Local":
         return dataclasses.replace(self, sharded=sharded)
+
+    @property
+    def kv_size(self) -> int:
+        return 1 if self.kv_dim is None else self.mesh.size(self.kv_dim)
+
+    @property
+    def kv_rank(self) -> int:
+        return (0 if self.kv_dim is None
+                else self.mesh.get_local_rank(self.kv_dim))
 
     # -- Megatron's operators -------------------------------------------
 
@@ -277,6 +316,11 @@ class Local:
         if self.sharded:
             return _Reduce.apply(y, self.group, False)
         return y
+
+    def copy(self, h):
+        """f over the model dim, whatever the residual's layout: a
+        replicated activation that partial computations read."""
+        return _Copy.apply(h, self.group) if self.tp_dim is not None else h
 
     def local_param(self, w):
         """A replicated leaf read inside a sharded block (or, with a
@@ -312,6 +356,24 @@ class Local:
         n = x.shape[dim] // self.tp
         return x.narrow(dim, self.rank * n, n)
 
+    # -- a cache split on the sequence (the SP decode flip) --------------
+
+    def kv_take(self, x, dim: int = 1):
+        """This rank's slots of a whole sequence (a prefill's K/V)."""
+        if self.kv_dim is None:
+            return x
+        n = x.shape[dim] // self.kv_size
+        return x.narrow(dim, self.kv_rank * n, n).contiguous()
+
+    def kv_softmax(self, lg):
+        """softmax over the keys of the rank's slots (`softmax_merge`)."""
+        return softmax_merge(lg, (self.mesh, self.kv_dim))
+
+    def kv_sum(self, o):
+        """The ranks' partial P·V summed over the dim splitting the
+        cache's sequence (forward only)."""
+        return _all_reduce(o, (self.mesh, self.kv_dim))
+
 
 # ---------------------------------------------------------------------------
 # placements
@@ -336,9 +398,10 @@ def tp_dim(ctx) -> int | None:
     return None if d in batch_dims(ctx) else d
 
 
-def local_view(ctx, *, seq: bool = False, cache_dims=None) -> Local:
+def local_view(ctx, *, seq: bool = False, cache_dims=None,
+               kv_dim: int | None = None) -> Local:
     return Local(mesh=ctx.mesh, tp_dim=tp_dim(ctx), batch_dims=batch_dims(ctx),
-                 seq=seq, cache_dims=cache_dims)
+                 seq=seq, cache_dims=cache_dims, kv_dim=kv_dim)
 
 
 def activation_placements(ctx, *, batch_dim: int = 0, seq_dim=None) -> tuple:

@@ -31,7 +31,11 @@ through `wo`'s row shard; where the heads do not split, the cache splits
 the state's key dim (`_state_layout`; decode sums r's product over the
 ranks' slices). Channel mixing runs k through its column shard, the
 partial `kk @ wv` reduce-scattered onto the rank's channels, gated there
-by r's column shard, and the result all-gathered whole.
+by r's column shard, and the result all-gathered whole. Under
+Megatron-SP both mixers take the sequence all-gathered by the layer
+(`parallel.Local.enter`), so each token shift reads its previous token
+across the shards' boundaries, and the prefill's `xp_tm`, `xp_cm` and
+`state` are the whole sequence's on every rank.
 
 Casts follow the reference's: r, k, v and the log decays in f32 (the
 decay LoRA's products too), the mixing weights in the activation dtype,
@@ -298,7 +302,9 @@ def time_mix_step(cfg, p: Tree, x, state, x_prev, lc=None):
 def _channel_mix(p: Tree, x, sx, lc=None):
     """sigmoid(xr wr) * (relu(xk wk)^2 wv); on a rank's shards the partial
     `kk @ wv` reduce-scattered onto the rank's channels, gated there, and
-    all-gathered whole (the block's output is not partial)."""
+    all-gathered whole (the block's output is not partial). Under
+    Megatron-SP x is the gathered sequence and the layer keeps its rows of
+    the output, so the gather's backward sums the ranks' gradients."""
     xr = x + sx * p["mu_r"].to(x.dtype)
     xk = x + sx * p["mu_k"].to(x.dtype)
     kk = torch.square(F.relu(matmul(xk, p["wk"])))
@@ -306,7 +312,7 @@ def _channel_mix(p: Tree, x, sx, lc=None):
         return torch.sigmoid(matmul(xr, p["wr"])) * matmul(kk, p["wv"])
     vv = lc.scatter(matmul(kk, p["wv"]), -1)
     return lc.gather(torch.sigmoid(matmul(xr, p["wr"])) * vv, -1,
-                     partial=False)
+                     partial=lc.seq)
 
 
 def channel_mix_full(cfg, p: Tree, x, x_prev=None, lc=None):

@@ -18,7 +18,10 @@ table's batch layout first. The logits stay vocab-sharded end to end:
 exponentials and the label's logit each all-reduced over the model axis,
 as (tokens,) vectors), averaged over the data axes; the train step sums
 each gradient over the data axes into its parameter's placement (the
-data-parallel all-reduce) before AdamW.
+data-parallel all-reduce) before AdamW. Under the SP decode flip (a
+global batch below the data ranks: the rule table's batch is None) the
+tokens are replicated, each rank holds its slots of the cache, and every
+rank's logits are the same.
 """
 
 from __future__ import annotations

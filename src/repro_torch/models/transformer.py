@@ -296,19 +296,25 @@ def _mixer(cfg, ls, p, h, *, mode, positions, cache, cache_len, lc=None):
                               lc=lc), {}
 
 
-def _cross(cfg, p, hx, *, mode, cache, enc_out, lc=None):
+def _cross(cfg, p, hx, *, mode, cache, enc_out, lc=None, enc_seq=False):
     """The cross sublayer: (output, new cache entries). Decode reads `ck`
     / `cv` from the cache and returns the same tensors; prefill computes
     them from `enc_out` once, attends over them and returns them; train
-    attends over `enc_out` (`attention.cross_full`)."""
+    attends over `enc_out` (`attention.cross_full`). On a rank's shards
+    the queries are those of the gathered sequence where the residual is
+    split (`lc.seq`), over the whole `enc_out`: all-gathered where the
+    encoder's residual is split on its frames (`enc_seq`), else entered
+    by f where partial computations read it."""
     if mode == "decode":
         return (_cross_decode(cfg, p, hx, cache["ck"], cache["cv"], lc),
                 {"ck": cache["ck"], "cv": cache["cv"]})
     if enc_out is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                          f"`frames` in {mode} mode")
-    if lc is not None:
-        enc_out = lc.enter(enc_out) if lc.sharded else enc_out
+    if lc is not None and enc_seq:
+        enc_out = lc.gather(enc_out, 1, partial=lc.sharded or lc.seq)
+    elif lc is not None and (lc.sharded or lc.seq):
+        enc_out = lc.copy(enc_out)
     ck, cv = attention.cross_kv(cfg, p, enc_out, lc)
     o = attention.cross_attend(cfg, p, hx, ck, cv, lc)
     if mode != "prefill":
@@ -375,9 +381,10 @@ def apply_layer(cfg: ModelConfig, ls: LayerSpec, p, x, *, mode: str,
 
 
 def _apply_local(cfg, ls, p, x, *, mode, positions=None, cache=None,
-                 cache_len=None, enc_out=None, lcs=None):
+                 cache_len=None, enc_out=None, lcs=None, enc_seq=False):
     """The layer on local tensors; `lcs` maps block names (mixer, cross,
-    ffn) to their `parallel.Local` on a rank's shards."""
+    ffn) to their `parallel.Local` on a rank's shards; `enc_seq`: the
+    local `enc_out` is a slice of the encoder's frames."""
     lcs = lcs or {}
     lm, lx, lf = lcs.get("mixer"), lcs.get("cross"), lcs.get("ffn")
     norm = _norm(cfg)
@@ -395,14 +402,17 @@ def _apply_local(cfg, ls, p, x, *, mode, positions=None, cache=None,
     x = x + exit_(lm, o)
     if ls.cross:
         o, c = _cross(cfg, p["cross"], enter(lx, norm(x, p["ln_x"])),
-                      mode=mode, cache=cache, enc_out=enc_out, lc=lx)
+                      mode=mode, cache=cache, enc_out=enc_out, lc=lx,
+                      enc_seq=enc_seq)
         new_cache.update(c)
         x = x + exit_(lx, o)
     o, aux, c = _ffn(cfg, ls, p["ffn"], enter(lf, norm(x, p["ln2"])),
                      mode=mode, cache=cache, lc=lf)
     new_cache.update(c)
-    if ls.ffn != "rwkv_cm":      # channel mixing returns its sum whole
+    if ls.ffn != "rwkv_cm":
         o = exit_(lf, o)
+    elif lf is not None and lf.seq:  # channel mixing's sum is whole
+        o = lf.take(o, 1)
     if ls.ffn == "gelu":
         o = o + p["ffn"]["bo"].to(o.dtype)
     return x + o, aux, new_cache
@@ -495,28 +505,23 @@ def _cache_placements(cfg, ls, ctx, b, s) -> dict:
         for k, sp in spec.items()}
 
 
-def _cache_dims(ctx, cache_pl: dict) -> dict:
-    """Each cache leaf's tensor dim split over the model dim; a split of a
-    sequence dim over the data axes (the reference's SP decode flip) has
-    no local code here."""
+def _cache_dims(ctx, cache_pl: dict) -> tuple[dict, int | None]:
+    """(each cache leaf's tensor dim split over the model dim, the mesh
+    dim that splits the sequence of the K/V or latent leaves or None).
+    The data dims split the sequence under the reference's SP decode flip
+    (`kv_seq` over "data", the batch replicated), else the batch."""
     from torch.distributed.tensor import Shard
 
     t = parallel.tp_dim(ctx)
-    bd = parallel.batch_dims(ctx)
-    out = {}
+    out, kv = {}, None
     for k, pl in cache_pl.items():
         out[k] = None
         for i, q in enumerate(pl):
-            if not isinstance(q, Shard):
-                continue
-            if i == t:
+            if isinstance(q, Shard) and i == t:
                 out[k] = q.dim
-            elif i not in bd or q.dim != 0:
-                raise NotImplementedError(
-                    f"cache leaf {k} split on dim {q.dim} over mesh dim "
-                    f"{ctx.mesh.mesh_dim_names[i]}: a sequence-split cache "
-                    "has no local attention in the port")
-    return out
+            elif isinstance(q, Shard) and q.dim == 1:
+                kv = i
+    return out, kv
 
 
 def _apply_sharded(cfg, ls, p, x, *, mode, ctx, positions, cache,
@@ -533,13 +538,11 @@ def _apply_sharded(cfg, ls, p, x, *, mode, ctx, positions, cache,
         s = seq_leaf.shape[1] if seq_leaf is not None else 1
     cache_pl = (_cache_placements(cfg, ls, ctx, b, s)
                 if mode in ("prefill", "decode") else {})
-    cdims = _cache_dims(ctx, cache_pl)
+    cdims, kv_dim = _cache_dims(ctx, cache_pl)
     x_pl = tuple(x.placements)
     seq = parallel.is_sharded(ctx, x_pl)
-    if seq and (ls.ffn == "rwkv_cm" or ls.cross or ls.mixer in ("rwkv",
-                                                                "mamba")):
-        raise NotImplementedError(f"{ls.mixer}/{ls.ffn}: a sequence-"
-                                  "parallel residual has no local code")
+    enc_seq = (enc_out is not None
+               and parallel.is_sharded(ctx, tuple(enc_out.placements)))
     tp_dims = {}
     for blk, dims in (("mixer", _mixer_tp_dims(cfg, ls, mode, ctx, cdims)),
                       ("cross", _cross_tp_dims(ctx) if ls.cross
@@ -550,7 +553,7 @@ def _apply_sharded(cfg, ls, p, x, *, mode, ctx, positions, cache,
     blocks = {blk: any(not r for q, r in zip(paths, rep)
                        if q.startswith(blk + "."))
               for blk in ("mixer", "cross", "ffn")}
-    base = parallel.local_view(ctx, seq=seq, cache_dims=cdims)
+    base = parallel.local_view(ctx, seq=seq, cache_dims=cdims, kv_dim=kv_dim)
     lcs = {blk: base.block(sh) for blk, sh in blocks.items()}
     if ls.ffn == "moe" and blocks["ffn"]:
         ep = moe.moe_axes(cfg, ctx)[1] == ctx.tp
@@ -575,7 +578,7 @@ def _apply_sharded(cfg, ls, p, x, *, mode, ctx, positions, cache,
         y, aux, nc = _apply_local(cfg, ls, parallel.nest(paths, ps), xs[0],
                                   mode=mode, positions=xs[1], cache=c,
                                   cache_len=cache_len, enc_out=xs[2],
-                                  lcs=lcs)
+                                  lcs=lcs, enc_seq=enc_seq)
         if not isinstance(aux, torch.Tensor):
             aux = y.new_zeros((), dtype=torch.float32)
         return (y, aux, *[nc[k] for k in out_keys])
@@ -644,7 +647,10 @@ def encode(cfg: ModelConfig, params, frames, ctx=None):
     conv frontend is the reference's stub too): the sinusoid table added,
     then `encoder_layers` bidirectional layers (each attention a
     non-causal flash call), then `enc.ln_f`. With `cfg.remat`, under
-    autograd each layer is recomputed in the backward, as the decoder's."""
+    autograd each layer is recomputed in the backward, as the decoder's.
+    With a `ShardCtx` each layer's input is in the residual's layout
+    (`_sp_constrain`: with Megatron-SP, split on the frames where the
+    model axis divides them, as the reference constrains it)."""
     b, s, d = frames.shape
     ls = _enc_layer(cfg)
     if ctx is None:
@@ -660,6 +666,7 @@ def encode(cfg: ModelConfig, params, frames, ctx=None):
             parallel.activation_placements(ctx), frames)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in params["enc"]["layers"]:
+        x = _sp_constrain(x, ctx, "train")
         if remat:
             x = checkpoint(lambda x, layer=layer: apply_layer(
                 cfg, ls, layer, x, mode="train", ctx=ctx, positions=pos)[0],
@@ -905,11 +912,14 @@ def _cross_kv_sharded(cfg, ls, layer, enc_out, ctx, b, s):
     from torch.distributed.tensor.experimental import local_map
 
     pls = _cache_placements(cfg, ls, ctx, b, s)
-    cdims = _cache_dims(ctx, pls)
+    cdims, _ = _cache_dims(ctx, pls)
     paths, leaves, pin, _, rep = parallel.prepare_params(
         ctx, layer["cross"], _cross_tp_dims(ctx))
     lc = parallel.local_view(ctx, cache_dims=cdims).block(not all(rep))
     n = len(leaves)
+    whole = parallel.activation_placements(ctx)   # every frame on a rank
+    if tuple(enc_out.placements) != whole:
+        enc_out = enc_out.redistribute(placements=whole)
 
     def body(*a):
         p = parallel.nest(paths, a[:n])

@@ -24,7 +24,7 @@ def _env(tmp):
 def run_suite(suite, tmp, world=4, timeout=600):
     out = os.path.join(str(tmp), f"{suite}.json")
     store = os.path.join(str(tmp), f"{suite}.store")
-    ranks = [0] if suite == "trace" else range(world)
+    ranks = [0] if suite in ("trace", "flip_dryrun") else range(world)
     procs = [subprocess.Popen([sys.executable, WORKER, suite, str(r),
                                str(world), store, out], env=_env(tmp),
                               stdout=subprocess.PIPE,

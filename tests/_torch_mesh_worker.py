@@ -9,7 +9,8 @@ to OUT as JSON. The test files (`test_torch_mesh_*.py`,
 tests) start the ranks and read the results; the reference's side runs in
 its own subprocess there (`reference_side`). The mesh is 2 x 2
 (data, model) but for the anytime suites, whose mesh is the 1-D
-`workers` axis over every rank.
+`workers` axis over every rank; the `trace` and `flip_dryrun` suites run
+rank 0 alone over a fake 4-rank group.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ STEP_ARCHS = ["llama3-8b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
               "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b",
               "whisper-large-v3", "qwen2-vl-2b"]
 # (arch, layout): tp for every family, ep for olmoe, sp for llama3-8b,
+# rwkv6-3b, jamba and whisper (its encoder's frames split too),
 # llama3-8b with one KV head (its cache split on the head dim), rwkv6-3b
 # and whisper with one head (a replicated mixer over a cache split on the
 # head dim), llama3-8b and jamba with remat (each layer's local_map
@@ -42,7 +44,9 @@ STEP_CASES = ([(a, "tp") for a in STEP_ARCHS]
                  ("jamba-v0.1-52b/remat", "tp"), ("llama3-8b/h3", "tp"),
                  ("llama3-8b/h3", "sp"), ("whisper-large-v3/h3", "tp"),
                  ("qwen2-vl-2b/h3", "tp"), ("rwkv6-3b/h3", "tp"),
-                 ("minicpm3-4b/h3", "tp"), ("deepseek-v2-lite-16b/h3", "tp")])
+                 ("minicpm3-4b/h3", "tp"), ("deepseek-v2-lite-16b/h3", "tp"),
+                 ("rwkv6-3b", "sp"), ("jamba-v0.1-52b", "sp"),
+                 ("whisper-large-v3", "sp")])
 TRACE_ARCHS = ["llama3-8b", "olmoe-1b-7b", "qwen2-7b", "deepseek-v2-lite-16b",
                "minicpm3-4b", "rwkv6-3b", "jamba-v0.1-52b",
                "whisper-large-v3", "qwen2-vl-2b", "llama3-8b/h3",
@@ -252,6 +256,233 @@ def suite_steps(mesh):
     return res
 
 
+# -- the SP decode flip (test_torch_mesh_flip.py) ----------------------------
+
+# batch 1 (below the 2 data ranks: the batch replicated, every K/V and
+# latent cache split on its sequence over "data"), a 16-token prompt, 6
+# teacher-forced decode steps into FLIP_SLOTS slots; `wrap` decodes into
+# 20 slots, so its writes cross from rank 1's slots (10..19) into rank
+# 0's (0, 1)
+FLIP_ARCHS = ["llama3-8b", "llama3-8b/kv1", "jamba-v0.1-52b",
+              "deepseek-v2-lite-16b", "whisper-large-v3", "rwkv6-3b"]
+FLIP_PROMPT, FLIP_STEPS, FLIP_SLOTS, FLIP_WRAP_SLOTS = 16, 6, 22, 20
+FLIP_CASES = FLIP_ARCHS + ["llama3-8b|wrap"]
+# against the reference's own flipped decode; the wrap case there too,
+# since ctx=None's ring write is the port's own code
+FLIP_REF_CASES = ["llama3-8b", "jamba-v0.1-52b", "llama3-8b|wrap"]
+# planted faults of the merge, each run on the wrap case
+FLIP_FAULTS = ("no_rescale", "own_denominator")
+
+
+def flip_tokens(cfg):
+    """The flip cases' (1, prompt + steps) tokens, numpy, from a seed."""
+    rng = np.random.default_rng(3)
+    return rng.integers(0, cfg.vocab_size,
+                        (1, FLIP_PROMPT + FLIP_STEPS)).astype(np.int32)
+
+
+def flip_frames(cfg):
+    rng = np.random.default_rng(4)
+    return rng.standard_normal((1, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+
+
+def _seq_leaf(cfg, i, key) -> bool:
+    from repro_torch.models import transformer
+
+    spec = transformer.layer_cache_spec(cfg, cfg.layer_kind(i), 1, 1)
+    return "kv_seq" in spec[key].axes
+
+
+def _grown(cfg, pre, slots):
+    """A prefill cache (full tensors) in a decode cache of `slots` slots:
+    the prompt's slots first, the other leaves whole."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    out = []
+    for i, (layer, spec) in enumerate(zip(pre, transformer.cache_spec(
+            cfg, 1, slots))):
+        c = {}
+        for k, t in layer.items():
+            if _seq_leaf(cfg, i, k):
+                c[k] = torch.zeros(spec[k].shape, dtype=t.dtype)
+                c[k][:, :t.shape[1]] = t
+            else:
+                c[k] = t.clone()
+        out.append(c)
+    return out
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _bound_err(got, want):
+    """max|got - want| over the dense bound's scale 1 + max|want|."""
+    g, w = _whole(got), _whole(want)
+    return float((g - w).abs().max()) / (1.0 + float(w.abs().max()))
+
+
+def flip_run(cfg, model, mesh, slots, ctx):
+    """A prefill of the flip prompt and FLIP_STEPS teacher-forced decode
+    steps into `slots` slots, with `ctx` (None: one process) on `model`:
+    (prefill logits, prefill cache, decode logits, cache after decode),
+    every tensor whole."""
+    import torch
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import steps
+
+    tok = torch.from_numpy(flip_tokens(cfg))
+    batch = {"tokens": tok[:, :FLIP_PROMPT]}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(flip_frames(cfg))
+    lg, pre = steps.make_prefill_step(cfg, ctx)(model, batch)
+    pre = [{k: _whole(t) for k, t in layer.items()} for layer in pre]
+    cache = _grown(cfg, pre, slots)
+    if ctx is not None:
+        cache = sh.distribute_cache(cache, mesh, cfg, 1, slots, ctx.rules)
+    dec = steps.make_decode_step(cfg, ctx)
+    out = []
+    for t in range(FLIP_STEPS):
+        at = FLIP_PROMPT + t
+        lgd, cache = dec(model, cache, {"tokens": tok[:, at:at + 1],
+                                        "cache_len": at})
+        out.append(_whole(lgd))
+    return (_whole(lg), pre, torch.cat(out, dim=1),
+            [{k: _whole(t) for k, t in layer.items()} for layer in cache])
+
+
+def flip_ctx(mesh, cfg, slots):
+    """The flip's ctx: `make_ctx` for a decode of global batch 1."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding as sh
+
+    return sh.make_ctx(mesh, cfg, ShapeSpec("flip", slots, 1, "decode"))
+
+
+def _flip_errs(got, want) -> dict:
+    (lg1, pre1, dec1, c1), (lg0, pre0, dec0, c0) = got, want
+    return {"prefill": _bound_err(lg1, lg0),
+            "prefill_cache": max(_bound_err(pre1[i][k], pre0[i][k])
+                                 for i in range(len(pre0)) for k in pre0[i]),
+            "decode": max(_bound_err(dec1[:, t], dec0[:, t])
+                          for t in range(FLIP_STEPS)),
+            "decode_cache": max(_bound_err(c1[i][k], c0[i][k])
+                                for i in range(len(c0)) for k in c0[i])}
+
+
+def _no_rescale(lg, group):
+    """A planted fault: the merge without the rescale by the global max."""
+    import torch
+
+    from repro_torch.models.parallel import _all_reduce
+
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    return e / _all_reduce(e.sum(dim=-1, keepdim=True), group)
+
+
+def _own_denominator(lg, group):
+    """A planted fault: each rank's probabilities over its own sum, the
+    other ranks' denominators left out."""
+    import torch
+
+    from repro_torch.models.parallel import _all_reduce
+
+    m = lg.amax(dim=-1, keepdim=True)
+    e = torch.exp(lg - m)
+    scale = torch.exp(m - _all_reduce(m, group, "max"))
+    return e * (scale / (e.sum(dim=-1, keepdim=True) * scale))
+
+
+def suite_flip(mesh):
+    """Every flip case with the flip's ctx against ctx=None on the same
+    weights: the prefill's last-position logits and its cache, each
+    decode step's logits and the cache after them, every leaf gathered
+    whole; where the cache's sequence is split; the planted merge faults
+    on the wrap case; and FLIP_REF_CASES on the reference's weights
+    (written by its `flip` part), with their logits."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import convert, parallel, transformer
+
+    res = {}
+    for case in FLIP_CASES:
+        arch, _, tag = case.partition("|")
+        cfg = smoke(arch)
+        slots = FLIP_WRAP_SLOTS if tag == "wrap" else FLIP_SLOTS
+        ctx = flip_ctx(mesh, cfg, slots)
+        want = flip_run(cfg, _model(cfg), mesh, slots, None)
+        md = sh.distribute_params(_model(cfg), mesh, cfg, ctx.rules)
+        r = _flip_errs(flip_run(cfg, md, mesh, slots, ctx), want)
+        shs = sh.cache_shardings(mesh, cfg, 1, slots, ctx.rules)
+        r["split_leaves"] = sorted(
+            f"{i}.{k}" for i, layer in enumerate(shs)
+            for k, one in layer.items()
+            if isinstance(one.placements[0], Shard)
+            and one.placements[0].dim == 1)
+        r["rules"] = {k: ctx.rules[k] for k in ("batch", "kv_seq")}
+        if tag == "wrap":
+            saved = parallel.softmax_merge
+            for name, fault in zip(FLIP_FAULTS, (_no_rescale,
+                                                 _own_denominator)):
+                parallel.softmax_merge = fault
+                try:
+                    r[f"fault_{name}"] = _flip_errs(
+                        flip_run(cfg, md, mesh, slots, ctx), want)
+                finally:
+                    parallel.softmax_merge = saved
+        res[case] = r
+    tmp = os.environ["MESH_WORKER_TMP"]
+    for case in FLIP_REF_CASES:
+        arch, _, tag = case.partition("|")
+        slots = FLIP_WRAP_SLOTS if tag == "wrap" else FLIP_SLOTS
+        cfg = smoke(arch)
+        with np.load(os.path.join(tmp, f"flip_params_{arch}.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        state = convert.params_from_reference(_nest_flat(flat))
+        model = transformer.Transformer(cfg, device="cpu")
+        model.load_state_dict({k: v.float() for k, v in state.items()})
+        ctx = flip_ctx(mesh, cfg, slots)
+        sh.distribute_params(model, mesh, cfg, ctx.rules)
+        lg, _, dec, _ = flip_run(cfg, model, mesh, slots, ctx)
+        res[f"ref|{case}"] = {"prefill": lg[:, -1].tolist(),
+                              "decode": dec.tolist()}
+    return res
+
+
+def _nest_flat(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def suite_flip_dryrun(mesh):
+    """The dry-run's record of a flipped decode cell (global batch 1 below
+    the 2 data ranks) at smoke size on the fake 2 x 2 group, for the
+    hybrid (jamba) and a dense config."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    tmp = os.environ["MESH_WORKER_TMP"]
+    out = {}
+    for arch in ("jamba-v0.1-52b", "llama3-8b"):
+        shape = ShapeSpec("smoke_long", 64, 1, "decode")
+        rec = dryrun.run_cell(arch, shape, False, tmp, force=True,
+                              cfg=smoke(arch), mesh=mesh)
+        out[arch] = {k: rec.get(k) for k in ("ok", "error",
+                                              "collectives_raw", "memory")}
+    return out
+
+
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -391,6 +622,7 @@ def _gathered_weights(model, log) -> list:
 # -- the anytime rounds over a group (test_torch_distributed_mp.py) --------
 
 ANY_SUITES = ("anytime", "one_rank")
+FAKE_SUITES = ("trace", "flip_dryrun")
 ANY_TIMEOUT_S = 120          # a rank left alone in a collective fails
 ANY_M = 20
 ANY_KW = dict(band=16, chunks_per_worker=4)
@@ -663,6 +895,73 @@ def reference_anytime(out_path):
         json.dump(out, f)
 
 
+def reference_flip(out_path):
+    """The reference's flipped decode on 4 forced host devices, a 2 x 2
+    (data, model) mesh, `make_ctx` with a ShapeSpec of global batch 1 (the
+    batch replicated, `kv_seq` over "data"): FLIP_REF_CASES at f32 weights
+    drawn from PRNGKey(0), written for the port's side
+    (`flip_params_<arch>.npz`), the prefill's last-position logits and
+    FLIP_STEPS teacher-forced decode steps into FLIP_SLOTS slots (the
+    wrap case FLIP_WRAP_SLOTS), each step jitted with the rule table's
+    shardings."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro import configs
+    from repro.configs.base import ShapeSpec
+    from repro.launch import sharding as rsh
+    from repro.launch.mesh import compat_mesh
+    from repro.models import steps, transformer
+    from repro.models.common import init_params
+    from repro_torch.models import convert
+
+    mesh = compat_mesh((2, 2), ("data", "model"))
+    tmp = os.environ["MESH_WORKER_TMP"]
+    out = {}
+    for case in FLIP_REF_CASES:
+        arch, _, tag = case.partition("|")
+        slots = FLIP_WRAP_SLOTS if tag == "wrap" else FLIP_SLOTS
+        name, _, var = arch.partition("/")
+        cfg = variant(configs.get_smoke(name), var)
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), init_params(
+            jax.random.PRNGKey(0), transformer.model_spec(cfg)))
+        np.savez(os.path.join(tmp, f"flip_params_{arch}.npz"),
+                 **_flat(jax.tree.map(np.asarray, params)))
+        ctx = rsh.make_ctx(mesh, cfg, ShapeSpec("flip", slots, 1, "decode"))
+        rules = ctx.rules
+        psh = rsh.param_shardings(mesh, cfg, rules)
+        params = jax.device_put(params, psh)
+        tok = jnp.asarray(flip_tokens(cfg))
+        bsh = NamedSharding(mesh, P(rules["batch"], None))
+        pre = jax.jit(steps.make_prefill_step(cfg, ctx),
+                      in_shardings=(psh, {"tokens": bsh}))
+        lg, pc = pre(params, {"tokens": tok[:, :FLIP_PROMPT]})
+        grown = _grown(cfg, convert.cache_from_reference(
+            jax.tree.map(np.asarray, pc)), slots)
+        cache = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                             convert.cache_to_reference(grown, cfg))
+        csh = rsh.cache_shardings(mesh, cfg, 1, slots, rules)
+        cache = jax.device_put(cache, csh)
+        dec = jax.jit(steps.make_decode_step(cfg, ctx),
+                      in_shardings=(psh, csh, {"tokens": bsh,
+                                               "cache_len": None}))
+        outs = []
+        for t in range(FLIP_STEPS):
+            at = FLIP_PROMPT + t
+            lgd, cache = dec(params, cache, {"tokens": tok[:, at:at + 1],
+                                             "cache_len": jnp.int32(at)})
+            outs.append(np.asarray(lgd, np.float32))
+        out[case] = {"prefill": np.asarray(lg, np.float32)[:, -1].tolist(),
+                     "decode": np.concatenate(outs, axis=1).tolist(),
+                     "kv_seq": rules["kv_seq"], "batch": rules["batch"]}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
 def reference_side(out_path, part):
     """The reference's side, in a process of its own with 4 forced host
     devices on a 2 x 2 (data, model) mesh: its MoE (`moe_ffn` under each
@@ -673,6 +972,8 @@ def reference_side(out_path, part):
     is `reference_anytime`'s."""
     if part == "anytime":
         return reference_anytime(out_path)
+    if part == "flip":
+        return reference_flip(out_path)
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
@@ -768,7 +1069,7 @@ def main():
 
     from repro_torch.launch.mesh import compat_mesh, start_fake_group
 
-    if suite == "trace":
+    if suite in FAKE_SUITES:
         start_fake_group(world)
         mesh = compat_mesh((2, 2), ("data", "model"))
     elif suite in ANY_SUITES:
@@ -782,7 +1083,8 @@ def main():
                                 rank=rank, world_size=world)
         mesh = compat_mesh((2, 2), ("data", "model"), devices="cpu")
     res = {"moe": suite_moe, "steps": suite_steps, "trace": suite_trace,
-           "anytime": suite_anytime, "one_rank": suite_one_rank}[suite](mesh)
+           "anytime": suite_anytime, "one_rank": suite_one_rank,
+           "flip": suite_flip, "flip_dryrun": suite_flip_dryrun}[suite](mesh)
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(res, f)
