@@ -28,9 +28,19 @@ Phases, each printing one JSON line:
      return_b=True)` with |a| = 131072 (epilepsy-128k), |b| = 32768, with
      the same checks, and the NATSA kernel timed at 1, 2 and 4 warps per
      SM on full-length diagonals (`warps_per_sm_probe`);
+  5b. `main_paper`: every workload of `repro_torch.configs.natsa`'s
+     PAPER_WORKLOADS in order (seismology-64k, epilepsy-128k, ecg-256k,
+     power-512k), each a self-join through `matrix_profile` on the card
+     with a planted motif pair and the default exclusion: one NATSA
+     launch, the pair both ways, 64 sampled rows against their f64 exact
+     profile within 1e-3, the kernel's ms (three launches after a warm-up)
+     beside its bound and `kernel_roofline`, the kernel against its plain
+     version at full size (phase 4's rule), the host prep, device and
+     host peaks; ecg-256k is phase 4's record;
   6. the flash-attention kernels against their plain version on the card:
      the reference's shape table and shapes off the kernels' 128-row tile
-     in f32 (2e-4, the CUDA-core "fma" route), the same shapes plus a
+     in f32 (2e-4, the CUDA-core "fma" route; also train_lm_torch's
+     attention, (4, 6, 96, 64) causal over 3 KV heads), the same shapes plus a
      non-causal one at D=128, D=64 at S=4096 and whisper-large-v3's
      encoder shape (1, 20, 1500, 64, non-causal) in bf16 (the tensor-core
      "wgmma" route; 3e-2 and each element within one bf16 rounding), and
@@ -111,6 +121,13 @@ Phases, each printing one JSON line:
  17b. `serve_example`: `examples/serve_profiles_torch.py`'s `main()` on
      the card: the planted series 2 near position 300, the expired answer,
      the rejected ninth query, 72 NATSA launches;
+ 17c. `examples`: the other four twins' `main()` on the card at the
+     reference's sizes, each passing its own assertions:
+     `examples/quickstart_torch.py` (1 NATSA launch),
+     `ab_query_torch.py` (3), `anomaly_monitor_torch.py` (1) and
+     `train_lm_torch.py` (150 steps to a loss under 6.5, a restart for 10
+     more: 960 flash launches on the `fma` route), the launches of
+     EXAMPLE_LAUNCHES exactly;
  18. `main_anytime`: `AnytimeScheduler` with 8 workers x 8 chunks on the
      one card: the ecg-256k self-join (exclusion 128, a planted pair) and
      epilepsy-128k against 32768 (AB, unswapped), one NATSA launch per
@@ -195,7 +212,8 @@ Phases, each printing one JSON line:
      of 3,072 + 64 greedy steps), with the fields of phases 20 and 21;
  26. `main_lm_mla`: deepseek-v2-lite-16b at its published width and depth
      (15.50 B parameters): one request of 32,768 tokens, then 128 of
-     3,072 + 64 greedy steps; MLA is torch ops, so no kernel launches;
+     LM_MLA_DECODE_PROMPT + 64 greedy steps (by time); MLA is torch ops,
+     so no kernel launches;
  27. `lm_ssm_vs_plain`: rwkv6-3b (2 layers) and jamba-v0.1-52b (5
      layers: four Mamba, two of them MoE, the attention layer at index
      4) at full width: jamba's bf16 train-mode logits over S = 4096 with
@@ -280,7 +298,9 @@ Phases, each printing one JSON line:
      path (0 on phases 9-15 but the z-normalized streaming query, which
      plans the NATSA kernel as `ab_join` does, 1 per monitor `motif`, 1
      per k = 1 serve pair, 1 per non-empty anytime chunk at k = 1, in one
-     process or through the group; 72 for the serve example; flash
+     process or through the group; 72 for the serve example; 1 per paper
+     workload; 5 for the other twins; flash 960 for the training twin;
+     flash
      one per GQA layer per LM prefill batch (32 for llama3-8b, 16 for
      olmoe-1b-7b, through the mesh too, 2 for jamba at 16 layers, 28 for
      qwen2-vl-2b, 64 for whisper-large-v3 with its encoder, the same under
@@ -305,6 +325,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # the H100 SXM's rates, one definition: FP32 outside the tensor cores,
@@ -312,12 +333,24 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.launch.roofline import (  # noqa: E402
     FP32_PEAK, HBM_BW as HBM_RATE, PEAK_FLOPS as BF16_PEAK,
 )
+# the paper's workloads, by name (src/repro_torch/configs/natsa.py)
+from repro_torch.configs.natsa import (  # noqa: E402
+    BENCH_WORKLOADS, PAPER_WORKLOADS,
+)
+
+WORKLOADS = {w.name: w for w in PAPER_WORKLOADS + BENCH_WORKLOADS}
+ECG = WORKLOADS["ecg-256k"]
+EPILEPSY = WORKLOADS["epilepsy-128k"]
+SEISMOLOGY = WORKLOADS["seismology-64k"]
+BENCH_16K = WORKLOADS["bench-16k"]
 
 SEED = 20240611
 TOL_KERNEL = 1e-4     # kernel vs plain version, correlation (the reference's own kernel standard)
 TOL_ORACLE = 1e-3     # full size vs f64 oracle: un-reseeded f32 drift measured ~1.6e-4 at n=262144
-SELF_N, SELF_M = 262144, 512           # ecg-256k (src/repro/configs/natsa.py:17)
-AB_NA, AB_NB, AB_M = 131072, 32768, 128  # epilepsy-128k (configs/natsa.py:16) vs 32768
+SELF_N, SELF_M = ECG.n, ECG.window
+# epilepsy-128k against B of 32768 samples: its series cut to a quarter
+AB_NA, AB_M = EPILEPSY.n, EPILEPSY.window
+AB_NB = 32768
 SAMPLED_ROWS = 64
 DEVICE = "cuda"
 
@@ -338,22 +371,30 @@ TOL_FLASH_BLOCKS = 1e-5
 TOL_FLASH_FULL = 1e-2  # x max|plain|, over the whole output
 FAULT_ROW0 = 4096      # the planted fault's first row
 FAULT_LATE_ROW0 = 16384  # its late rows, read on their own
-ENGINE_SELF_N, ENGINE_SELF_M = 65536, 512
-ENGINE_AB_NA, ENGINE_AB_NB, ENGINE_AB_M = 32768, 8192, 128
+# the band engine against the kernel: ecg-256k's window over its series
+# cut to a quarter; epilepsy-128k's window, A cut to a quarter (main_ab's
+# B) and B to a sixteenth
+ENGINE_SELF_N, ENGINE_SELF_M = 65536, ECG.window
+ENGINE_AB_NA, ENGINE_AB_NB, ENGINE_AB_M = AB_NB, 8192, EPILEPSY.window
 TOPK_K = 4
-TOPK_N, TOPK_M = 262144, 512            # ecg-256k (configs/natsa.py:17)
-ROWSTREAM_LQ = 4096                     # the reference's rowstream ceiling
-ROWSTREAM_NB, ROWSTREAM_M = 131072, 128  # epilepsy-128k (configs/natsa.py:16)
-BATCH_SELF_B, BATCH_SELF_N, BATCH_M = 4, 16384, 128  # bench-16k (natsa.py:23)
-BATCH_AB_B, BATCH_AB_LQ, BATCH_AB_NB = 8, 4096, 32768
-NONNORM_N, NONNORM_M = 65536, 256      # seismology-64k (configs/natsa.py:15)
+TOPK_N, TOPK_M = ECG.n, ECG.window
+# 4096 query subsequences (the reference's rowstream ceiling, cut from
+# epilepsy-128k's 130945) against epilepsy-128k's series
+ROWSTREAM_LQ = 4096
+ROWSTREAM_NB, ROWSTREAM_M = EPILEPSY.n, EPILEPSY.window
+BATCH_SELF_B = 4
+BATCH_SELF_N, BATCH_M = BENCH_16K.n, BENCH_16K.window
+# 8 queries of ROWSTREAM_LQ subsequences against 8 series of AB_NB
+# samples (main_ab's B), at bench-16k's window
+BATCH_AB_B, BATCH_AB_LQ, BATCH_AB_NB = 8, ROWSTREAM_LQ, AB_NB
+NONNORM_N, NONNORM_M = SEISMOLOGY.n, SEISMOLOGY.window
 # raw distances: |d - d64| <= 2e-3 + 2e-3 d64, the reference's own
 # nonnorm-vs-brute-force tolerance (tests/test_ab_join.py:148,
 # tests/test_fused_twoside.py:144); indices may differ where the picked
 # pair's exact distance is within it of the oracle's
 NONNORM_ATOL = NONNORM_RTOL = 2e-3
-TILE_N, TILE_M = 262144, 512            # ecg-256k (configs/natsa.py:17)
-STREAM_N, STREAM_M, STREAM_BLOCK = 16384, 128, 256  # bench-16k (natsa.py:23)
+TILE_N, TILE_M = ECG.n, ECG.window
+STREAM_N, STREAM_M, STREAM_BLOCK = BENCH_16K.n, BENCH_16K.window, 256
 STREAM_QUERY_N, STREAM_REAPPEND = 4096, 64
 # snapshot vs the batch profile: the reference's own streaming tolerance
 # (tests/test_flash_and_streaming.py:85); vs the f64 oracle: both f64
@@ -378,22 +419,24 @@ FLEET_ALARM = 5.3
 MONITOR_HISTORY, MONITOR_M = 8192, 32   # TelemetryMonitor's defaults
 # the profile service (src/repro/serve): 64 resident series and 16
 # concurrent queries are the reference's serve benchmark
-# (benchmarks/run.py:724-740, bench_serve), 2 logical shards; m = 128 is
-# epilepsy-128k's (configs/natsa.py:16). The series length (65536) and the
-# query length (4096 samples, 3969 subsequences) have no source in the
-# repo: bench_serve's 384 and 192 at m = 64 are sized for a CPU run, and
-# these are chosen so the card sweeps a corpus of real size (4.3 GB of
-# resident f64 windows), with queries as long as the AB rowstream's row
-# ceiling (ROWSTREAM_LQ), which a k > 1 query of this length would run on
-SERVE_SERIES, SERVE_N, SERVE_M, SERVE_SHARDS = 64, 65536, 128, 2
+# (benchmarks/run.py:724-740, bench_serve), 2 logical shards; m is
+# epilepsy-128k's. The series length (65536, epilepsy-128k's series cut to
+# half) and the query length (4096 samples, 3969 subsequences) have no
+# source in the repo: bench_serve's 384 and 192 at m = 64 are sized for a
+# CPU run, and these are chosen so the card sweeps a corpus of real size
+# (4.3 GB of resident f64 windows), with queries as long as the AB
+# rowstream's row ceiling (ROWSTREAM_LQ), which a k > 1 query of this
+# length would run on
+SERVE_SERIES, SERVE_N, SERVE_M, SERVE_SHARDS = 64, 65536, EPILEPSY.window, 2
 SERVE_QUERIES, SERVE_QUERY_N = 16, 4096
 SERVE_BITWISE, SERVE_ORACLE = 4, 2      # answers held to the loop / oracle
 # query 0's window SERVE_PLANT[2] copies series SERVE_PLANT[0]'s window at
 # SERVE_PLANT[1]
 SERVE_PLANT = (37, 40000, 1000)
-# k = 4 on the per-pair rowstream plan: 4 series of 16384, 2 queries of 512
+# k = 4 on the per-pair rowstream plan: 4 series of bench-16k's 16384,
+# 2 queries of 512
 SERVE_K, SERVE_K_SERIES, SERVE_K_N, SERVE_K_QUERIES, SERVE_K_QUERY_N = (
-    4, 4, 16384, 2, 512)
+    4, 4, BENCH_16K.n, 2, 512)
 # FaultInjector.seeded(36, n_rounds=4, n_workers=2, p_worker_crash=0.3,
 # p_round_failure=0.3, max_round_failures=2): shard 0 crashes at tick 0,
 # tick 2 (shard 0 again) fails once and retries
@@ -402,11 +445,11 @@ SERVE_FAULT_SEED = 36
 # equal-work chunks, so 64 NATSA launches at k = 1 over 8 rounds, on the
 # ecg-256k self-join (exclusion 128 = default_exclusion(512)) and on
 # epilepsy-128k against 32768 (AB, unswapped, exclusion 0); a checkpoint
-# after round 4 resumed on 4 workers; k = 4 at bench-16k
-# (configs/natsa.py:23) on the band engine's top-k chunks
+# after round 4 resumed on 4 workers; k = 4 at bench-16k on the band
+# engine's top-k chunks
 ANYTIME_WORKERS, ANYTIME_CPW, ANYTIME_EXCL = 8, 8, 128
 ANYTIME_CKPT_ROUND, ANYTIME_RESUME_WORKERS = 4, 4
-ANYTIME_K, ANYTIME_K_N, ANYTIME_K_M = 4, 16384, 128
+ANYTIME_K, ANYTIME_K_N, ANYTIME_K_M = 4, BENCH_16K.n, BENCH_16K.window
 # FaultInjector.seeded(2, **ANYTIME_FAULTS) over a 64-chunk, 8-worker plan:
 # 10 rounds, 4 retries, worker 3 excluded after 3 crashes, 3 replans, 1
 # killed and 3 flipped checkpoints of 10 (the same schedule on both cells)
@@ -473,8 +516,11 @@ TOL_LM_BF16 = 2.0 ** -5
 #   LM_MLA_PREFILL_B by time: MLA's f32 logits are ~1e13 FLOP a layer per
 #   request with the masked key blocks skipped; one request took 11.4 s
 #   (peak 35.4 GB), and the phase runs it twice;
-# - decode_32k for both as llama3-8b's: 128 requests of 3,072 + 64 slots
-#   (olmoe's KV cache 52.6 GB, deepseek's latent cache 12.5 GB);
+# - decode_32k: olmoe as llama3-8b's, 128 requests of 3,072 + 64 slots
+#   (its KV cache 52.6 GB); deepseek 128 requests of LM_MLA_DECODE_PROMPT
+#   + 64, by time: its 3,072-token prompts took 22.0 s of the script on an
+#   H100 80GB HBM3 host at 700 W (a 12.5 GB latent cache), which the
+#   paper's workloads needed;
 # - lm_moe_vs_plain: full width, 2 layers (deepseek's dense first layer and
 #   one MLA + MoE layer); olmoe in bf16 at S = 4096 (the capacity regime),
 #   both in f32 at B·S = 1024 so that every dispatch is dropless (beyond
@@ -482,6 +528,7 @@ TOL_LM_BF16 = 2.0 ** -5
 #   decode never does: the two differ by design).
 LM_MOE_ARCH, LM_MLA_ARCH = "olmoe-1b-7b", "deepseek-v2-lite-16b"
 LM_MOE_PREFILL_B, LM_MLA_PREFILL_B = 8, 1
+LM_MLA_DECODE_PROMPT = 1024
 LM_MOE_LAYERS, LM_MOE_PLAIN_S, LM_MOE_F32_S, LM_MOE_DECODE = 2, 4096, 1024, 64
 # Routing flips: a router logit that moves by one bf16 rounding (kernel
 # vs plain attention) can change a token's top-8 or, through the slots, a
@@ -501,8 +548,9 @@ FLIP_SHARE_MAX = 0.1
 #   chunks of 64 through each of 32 layers, a Python loop of 16,384 chunk
 #   steps (ROADMAP.md §C (22)), each forming the masked (40, 64, 64, 64)
 #   f32 exponent tensor and its products (~10 passes of 42 MB), ~2 s of
-#   device time a request by its bytes; the phase runs the batch three
-#   times. Memory would allow ~24 requests (~3 GB a request above the
+#   device time a request by its bytes; the phase runs the whole batch
+#   twice (~5 s a request on an H100 80GB HBM3 host at 700 W, 20.7 s at
+#   batch 4), which the paper's workloads needed. Memory would allow ~24 requests (~3 GB a request above the
 #   weights: the f32 r/k/v/decay and WKV output, the five bf16 mixes and
 #   the channel mix's (S, 8960)).
 # - jamba-v0.1-52b (d 4096, 32 heads / 8 KV heads of 128 without RoPE,
@@ -519,19 +567,20 @@ FLIP_SHARE_MAX = 0.1
 #   73 GB of the card's 85.0, 3 near 83 GB.
 # - decode_32k: jamba 128 requests of LM_JAMBA_DECODE_PROMPT + 64 slots,
 #   by time (its 3,072-token prompts took ~51 s of the script, which
-#   main_lm_mesh and dryrun_host needed; at 1,024 its Mamba layers'
-#   1.03 GB of state are unchanged, its K/V 1.10 GB); rwkv6-3b 128 requests of
+#   main_lm_mesh and dryrun_host needed, and its 1,024-token ones 17.1 s,
+#   which the paper's workloads needed; its Mamba layers' 1.03 GB of
+#   state are the same at any context); rwkv6-3b 128 requests of
 #   LM_RWKV_DECODE_PROMPT + 64 tokens, by time: its step reads and writes
 #   the same 2.73 GB of state at any context, and its 3,072-token prompts
 #   took 63.7 s of the script (a Python loop of 48 chunk steps a layer a
-#   prompt chunk), which whisper's and qwen2-vl's phases needed.
+#   prompt chunk), its 1,024-token ones 23.8 s.
 # - lm_ssm_vs_plain: full width; rwkv6-3b 2 layers, jamba 5 layers (four
 #   Mamba layers, two of them MoE, and the first attention layer at index
 #   4); f32 at one request of 1024 tokens (dropless, as lm_moe_vs_plain),
 #   jamba also in bf16 at 4096 (the capacity regime).
 LM_RWKV_ARCH, LM_JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
-LM_RWKV_PREFILL_B, LM_JAMBA_PREFILL_B, LM_JAMBA_LAYERS = 4, 2, 16
-LM_RWKV_DECODE_PROMPT = LM_JAMBA_DECODE_PROMPT = 1024
+LM_RWKV_PREFILL_B, LM_JAMBA_PREFILL_B, LM_JAMBA_LAYERS = 2, 2, 16
+LM_RWKV_DECODE_PROMPT = LM_JAMBA_DECODE_PROMPT = 512
 LM_SSM_LAYERS = {LM_RWKV_ARCH: 2, LM_JAMBA_ARCH: 5}
 LM_SSM_F32_S, LM_SSM_DECODE, LM_SSM_PLAIN_S = 1024, 64, 4096
 # chunk-size invariance, f32: max|d| <= 2e-3 max|logits|, the reference's
@@ -629,13 +678,15 @@ FRAMES_SCALE = 0.02       # the reference trainer's frames (launch/train.py:78)
 #   state), the tied embedding 525.3 M (8.41 GB). At 12 layers the step
 #   peaked at 66.74 GB on an H100 80GB HBM3 (state 50.3 GB, the rest one
 #   microbatch's f32 logits and their gradient, one layer's recompute);
-#   15 layers (3.58 B parameters) peak near 77.2 GB and leave ~8 GB of the
-#   card's 85.0 GB free, 16 would leave ~4;
+#   15 layers (3.58 B parameters) peaked at 76.1 GB, 16 would leave ~4 GB
+#   of the card's 85.0 free. Cut to 12 by time: a step takes ~0.77 s a
+#   layer (11.5 s at 15), the phase runs six, and the paper's workloads
+#   needed the time;
 # - batch: global batch 256 cut to 16, as 8 microbatches of 2 sequences of
 #   4096 (the sequence stays), so that a step stays in seconds;
 # - steps: one warm step (with the in-model gradient checks), then
 #   LM_TRAIN_STEPS timed.
-LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_B, LM_TRAIN_MB = 15, 4096, 16, 8
+LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_B, LM_TRAIN_MB = 12, 4096, 16, 8
 LM_TRAIN_STEPS = 4
 LM_TRAIN_LR = 3e-4          # AdamWConfig's default, warmup of one step
 # lm_train_vs_plain: 2 layers, 2 sequences of 4096 as 2 microbatches.
@@ -671,6 +722,10 @@ GRAD_REL, GRAD_ABS_OF_MAX = 2.0 ** -7, 2.0 ** -14
 
 
 def emit(obj) -> None:
+    """Print `obj` as one JSON line; a phase's record also gets `at_s`,
+    the script's seconds from its start to the record."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -987,22 +1042,23 @@ def phase_kernel_cases() -> float:
     from repro_torch.kernels import natsa_mp
 
     rng = np.random.default_rng(SEED)
-    m = 128
-    gaps = walk(rng, 16384)
+    n, m = BENCH_16K.n, BENCH_16K.window
+    nb = n // 4                     # B: bench-16k's series cut to a quarter
+    gaps = walk(rng, n)
     for s in (1000, 5000, 5003, 12000):
         gaps[s:s + 7] = np.nan
-    cases = [("self_n16384_m128", _self_case(walk(rng, 16384), m))]
-    a, b = walk(rng, 16384), walk(rng, 4096)
+    cases = [(f"self_n{n}_m{m}", _self_case(walk(rng, n), m))]
+    a, b = walk(rng, n), walk(rng, nb)
     # the planner sweeps the short side on rows
     for excl in (0, 32):
-        for n, case in enumerate(_ab_cases(b, a, m, excl)):
-            cases.append((f"ab_16384x4096_m128_excl{excl}_span{n}", case))
+        for k, case in enumerate(_ab_cases(b, a, m, excl)):
+            cases.append((f"ab_{n}x{nb}_m{m}_excl{excl}_span{k}", case))
     cases.append(("self_nan_gaps", _self_case(gaps, m)))
-    cases.append(("self_bf16", _self_case(walk(rng, 16384), m,
+    cases.append(("self_bf16", _self_case(walk(rng, n), m,
                                           torch.bfloat16)))
     for case in natsa_edge_cases():
-        for n, inputs in enumerate(edge_case_inputs(case)):
-            cases.append((f"edge_{case['name']}_span{n}", inputs))
+        for k, inputs in enumerate(edge_case_inputs(case)):
+            cases.append((f"edge_{case['name']}_span{k}", inputs))
     worst = 0.0
     for name, (args, kw) in cases:
         kern = natsa_mp.rowmax_profile_ab(*args, **kw)
@@ -1071,6 +1127,7 @@ def _time_kernel(args, kw, cells: float, ts_rows, ts_cols, m) -> dict:
     repeat = all(torch.equal(a, b) for a, b in zip(kern, last[-1]))
     check(repeat, "the kernel's outputs differ from launch to launch")
     del last
+    b = _bound(args, kw, cells)
     plain_box = []
     plain_ms = cuda_ms(lambda: plain_box.append(
         natsa_mp.rowmax_profile_ab_plain(*args, **kw)), 1)
@@ -1079,7 +1136,6 @@ def _time_kernel(args, kw, cells: float, ts_rows, ts_cols, m) -> dict:
     check(res["max_abs_err"] <= TOL_ORACLE and res["tie_violations"] == 0
           and res["exact_pair_violations"] == 0,
           f"full size kernel vs plain {res}")
-    b = _bound(args, kw, cells)
     return {"ms": ms, "plain_ms": plain_ms, **b, "cells": cells,
             "cells_per_s": cells / (ms * 1e-3),
             "share_of_bound": b["bound_ms"] / ms, "bitwise_repeat": repeat,
@@ -1129,15 +1185,27 @@ def _oracle_rows(prof_p, ts_rows, ts_cols, m, rows, exclusion) -> float:
     return float((dist_to_corr(got, m) - dist_to_corr(d_ref, m)).abs().max())
 
 
-def phase_self() -> dict:
+def _host_peak_rss() -> int:
+    """The process's peak resident set so far, in bytes."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _self_join(n: int, m: int, seed: int) -> dict:
+    """A random walk of `n` with a planted motif pair through
+    `matrix_profile(ts, m, device="cuda")` at the default exclusion: the
+    launches, the motif found both ways, 64 sampled rows against their f64
+    exact profile, the host prep and its upload apart, the peaks; then the
+    kernel timed on the same streams and held against its plain version
+    (`_time_kernel`) beside its bound and `kernel_roofline`."""
     import torch
 
     from repro_torch.core import matrix_profile
     from repro_torch.core.matrix_profile import default_exclusion
     from repro_torch.core.zstats import compute_stats_host, dist_to_corr
 
-    rng = np.random.default_rng(SEED + 1)
-    n, m = SELF_N, SELF_M
+    rng = np.random.default_rng(seed)
     pa, pb = n // 5, (3 * n) // 5 + 17
     ts = plant(walk(rng, n), pa, pb, m)
     excl = default_exclusion(m)
@@ -1162,33 +1230,77 @@ def phase_self() -> dict:
     motif_corr = float(dist_to_corr(p[[pa, pb]].double(), m).min())
     check(ia == pb and ib == pa, f"motif pair ({pa},{pb}) -> ({ia},{ib})")
     check(motif_corr >= 1 - TOL_ORACLE, f"motif corr {motif_corr}")
-    rows = np.sort(np.random.default_rng(SEED + 2).choice(
+    rows = np.sort(np.random.default_rng(seed + 1).choice(
         n - m + 1, SAMPLED_ROWS, replace=False))
     oracle_err = _oracle_rows(p, ts, ts, m, rows, excl)
-    check(oracle_err <= TOL_ORACLE, f"self oracle error {oracle_err}")
+    check(oracle_err <= TOL_ORACLE,
+          f"self oracle error {oracle_err} at n={n} m={m}")
+    del res, p, i
 
     t0 = time.perf_counter()
     stats = compute_stats_host(ts, m, device="cpu")
     prep = time.perf_counter() - t0
+    rss = _host_peak_rss()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats.to(DEVICE)
     torch.cuda.synchronize()
     h2d = time.perf_counter() - t0
+    del stats
 
     args, kw = _self_case(ts, m)
     l = n - m + 1
     cells = (l - excl) * (l - excl + 1) / 2
     kt = _time_kernel(args, kw, cells, ts, ts, m)
     roof = _roofline_terms(l, excl, kt)
-    out = {"phase": "main_self", "n": n, "m": m, "launches": launches,
-           "counts": counts, "roofline": roof,
-           "motif": [pa, pb], "motif_corr": motif_corr,
-           "oracle_rows": SAMPLED_ROWS, "oracle_max_corr_err": oracle_err,
-           "host_prep_s": prep, "h2d_s": h2d, "e2e_s": e2e,
-           "peak_device_bytes": peak, **kt}
+    return {"n": n, "m": m, "launches": launches,
+            "counts": counts, "roofline": roof,
+            "motif": [pa, pb], "motif_corr": motif_corr,
+            "oracle_rows": SAMPLED_ROWS, "oracle_max_corr_err": oracle_err,
+            "host_prep_s": prep, "h2d_s": h2d, "e2e_s": e2e,
+            "peak_device_bytes": peak, "host_peak_rss_bytes": rss, **kt}
+
+
+def phase_self() -> dict:
+    out = {"phase": "main_self",
+           **_self_join(SELF_N, SELF_M, SEED + 1)}
     emit(out)
     return out
+
+
+# main_paper: every paper workload (PAPER_WORKLOADS, in order) as a
+# self-join at full size, seeds PAPER_SEED + 2k; ecg-256k is main_self
+PAPER_SEED = SEED + 200
+PAPER_FIELDS = ("n", "m", "launches", "counts", "roofline", "motif",
+                "motif_corr", "oracle_rows", "oracle_max_corr_err",
+                "host_prep_s", "h2d_s", "e2e_s", "peak_device_bytes",
+                "host_peak_rss_bytes", "ms", "plain_ms", "bound_ms",
+                "bound_by", "share_of_bound", "cells", "cells_per_s",
+                "bitwise_repeat", "full_size_vs_plain")
+
+
+def phase_paper(self_rec: dict) -> dict:
+    """The paper's four workloads through the normal entry point on the
+    card, each a self-join with a planted motif and the default exclusion
+    (`_self_join`): one NATSA launch each, the motif both ways, 64 oracle
+    rows within TOL_ORACLE, the kernel's ms beside its bound and against
+    its plain version at full size, the host prep and the peaks. ecg-256k
+    is `main_self`, whose record is taken."""
+    records, counts = {}, {"natsa_mp": 0, "flash_attn": 0}
+    for k, w in enumerate(PAPER_WORKLOADS):
+        if w == ECG:
+            rec = {"from": "main_self",
+                   **{f: self_rec[f] for f in PAPER_FIELDS}}
+        else:
+            rec = _self_join(w.n, w.window, PAPER_SEED + 2 * k)
+            for key in counts:
+                counts[key] += rec["counts"][key]
+        check(rec["launches"] == 1 and rec["counts"]["flash_attn"] == 0,
+              f"{w.name}: {rec['counts']}, want 1 NATSA launch")
+        rec = {"phase": "main_paper", "workload": w.name, **rec}
+        emit(rec)
+        records[w.name] = rec
+    return {"records": records, "counts": counts}
 
 
 def phase_ab() -> dict:
@@ -1304,14 +1416,19 @@ def phase_flash_cases() -> tuple[float, float, float]:
              # S % 128 != 0: the kernels' masked partial tile
              (1, 2, 96, 40, 32, 48, True), (1, 1, 96, 24, 16, 96, False),
              (2, 1, 80, 128, 16, 40, True)]
-    for b, h, s, d, bq, bk, causal in table:
-        q, k, v = _flash_inputs(rng, (b, h, s, d), torch.float32)
+    # f32 also at train_lm_torch's attention: 4 x 96 tokens, 6 query heads
+    # of 64 over 3 KV heads, blocks gcd(96, 128) = 32 (models/attention.py)
+    f32_cases = [(*c, None) for c in table] + [(4, 6, 96, 64, 32, 32, True,
+                                                3)]
+    for b, h, s, d, bq, bk, causal, kvh in f32_cases:
+        q, k, v = _flash_inputs(rng, (b, h, s, d), torch.float32, kvh)
         out = _on_route("fma", lambda: flash_attn.flash_attention(
             q, k, v, bq=bq, bk=bk, causal=causal))
         plain = flash_attn.flash_attention_plain(q, k, v, causal=causal)
         err = float((out - plain).abs().max())
         emit({"phase": "flash_vs_plain", "case": [b, h, s, d, bq, bk, causal],
-              "dtype": "float32", "max_abs_err": err, "tol": TOL_FLASH_F32})
+              "kv_heads": kvh or h, "dtype": "float32", "max_abs_err": err,
+              "tol": TOL_FLASH_F32})
         check(err <= TOL_FLASH_F32, f"flash f32 case {b, h, s, d}: {err}")
         worst = max(worst, err)
     worst_bf16 = worst_ratio = 0.0
@@ -2793,18 +2910,23 @@ def phase_serve() -> dict:
     return out
 
 
+def _load_example(name: str):
+    """`examples/<name>.py` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
 def phase_serve_example() -> dict:
     """`examples/serve_profiles_torch.py`'s `main()` on the card: the probe
     names the planted series 2 near position 300, a lapsed query answers
     expired, the ninth pending query is rejected; one NATSA launch per
     (query, series) pair of the 12 answered queries against 6 series."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "serve_profiles_torch",
-        os.path.join(ROOT, "examples", "serve_profiles_torch.py"))
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = _load_example("serve_profiles_torch")
     reset_counts()
     found, secs = _timed(example.main)
     counts = read_counts()
@@ -2815,6 +2937,54 @@ def phase_serve_example() -> dict:
     check(counts["natsa_mp"] == 12 * 6 and counts["flash_attn"] == 0,
           f"serve example launches {counts}, want 72 NATSA")
     out = {"phase": "serve_example", "s": secs, "counts": counts, **found}
+    emit(out)
+    return out
+
+
+# the launches each example twin makes, read off the code before its first
+# run on the card: quickstart's k = 4 call plans the band engine and its
+# k = 1 `natsa_matrix_profile` launches once; ab_query's k = 3 `ab_join`
+# and `batch_profile` run the engine, `natsa_ab_join` (no exclusion, one
+# span) and each of the two z-normalized streaming queries launch once
+# (appends run the f64 block kernels); anomaly_monitor's raw profile and
+# `scan` run the raw engine, `motif` a z-normalized self-join; train_lm's
+# model (f32, head dim 64: the `fma` route) calls flash once per layer in
+# the forward of each step (one microbatch, no remat): 6 layers x (150
+# steps + 10 after the restart)
+EXAMPLE_LAUNCHES = {
+    "quickstart_torch": {"natsa_mp": 1, "flash_attn": 0},
+    "ab_query_torch": {"natsa_mp": 3, "flash_attn": 0},
+    "anomaly_monitor_torch": {"natsa_mp": 1, "flash_attn": 0},
+    "train_lm_torch": {"natsa_mp": 0, "flash_attn": 6 * (150 + 10)},
+}
+
+
+def phase_examples() -> dict:
+    """The four example twins' `main()` on the card at the reference's
+    sizes: each passes its own assertions (planted motif, discord, query
+    match, flagged series, alarms; train_lm's 150 steps to a loss under
+    6.5, then its restart from the written checkpoint for 10 more), with
+    exactly the launches of EXAMPLE_LAUNCHES, every flash launch on `fma`
+    (the twins run in f32). The checkpoints a twin reports are removed."""
+    import shutil
+
+    out, counts = {"phase": "examples"}, {"natsa_mp": 0, "flash_attn": 0}
+    for name, want in EXAMPLE_LAUNCHES.items():
+        example = _load_example(name)
+        reset_counts()
+        found, secs = _timed(example.main)
+        shutil.rmtree(found.get("ckpt_dir", ""), ignore_errors=True)
+        got = read_counts()
+        check({k: got[k] for k in want} == want
+              and got["flash_attn_routes"] == {"wgmma": 0,
+                                               "fma": want["flash_attn"]},
+              f"{name} launches {got}, want {want}, all flash on fma")
+        for k in counts:
+            counts[k] += got[k]
+        out[name] = {"s": secs, "counts": got,
+                     **{k: v for k, v in found.items()
+                        if isinstance(v, (int, float, str, list, tuple))}}
+    out["counts"] = counts
     emit(out)
     return out
 
@@ -5514,6 +5684,7 @@ def main() -> None:
     small_err = phase_kernel_cases()
     s = phase_self()
     ab = phase_ab()
+    paper = phase_paper(s)
     flash_err, flash_bf16_err, flash_bf16_ratio = phase_flash_cases()
     fl = phase_flash()
     phase_engine()
@@ -5528,6 +5699,7 @@ def main() -> None:
     del raw_fleet
     sv = phase_serve()
     ex = phase_serve_example()
+    exs = phase_examples()
     an = phase_anytime()
     torch.cuda.empty_cache()
     lm = phase_lm()
@@ -5539,7 +5711,8 @@ def main() -> None:
     lm_mesh = lm_moe["then"]
     torch.cuda.empty_cache()
     lm_mla = _lm_serving(LM_MLA_ARCH, "main_lm_mla", "main_lm_mla",
-                         LM_MLA_PREFILL_B, SEED + 70)
+                         LM_MLA_PREFILL_B, SEED + 70,
+                         prompt=LM_MLA_DECODE_PROMPT)
     ssm_plain = phase_lm_ssm_vs_plain()
     torch.cuda.empty_cache()
     lm_rwkv = _lm_serving(LM_RWKV_ARCH, "main_lm_rwkv", "main_lm_rwkv",
@@ -5588,7 +5761,8 @@ def main() -> None:
                  "anytime_group": an["self"]["group"],
                  "anytime_group_ab": an["ab"]["group"],
                  "anytime_group_topk": an["topk"]["group"],
-                 "serve_example": ex,
+                 "serve_example": ex, "main_paper": paper,
+                 "examples": exs,
                  "lm_prefill": lm["prefill"], "lm_decode": lm["decode"],
                  "lm_moe_prefill": lm_moe["prefill"],
                  "lm_moe_decode": lm_moe["decode"],
@@ -5620,7 +5794,9 @@ def main() -> None:
                      + an["self"]["launches"] + an["ab"]["launches"]
                      + an["self"]["group"]["launches"]
                      + an["ab"]["group"]["launches"]
-                     + ex["counts"]["natsa_mp"]),
+                     + ex["counts"]["natsa_mp"]
+                     + paper["counts"]["natsa_mp"]
+                     + exs["counts"]["natsa_mp"]),
         "launches_by_path": {"matrix_profile": s["launches"],
                              "ab_join": ab["launches"],
                              "flash_attention": fl["counts"]["natsa_mp"],
@@ -5640,6 +5816,12 @@ def main() -> None:
             "bound_ms_all_pairs": sv["bound_ms_all_pairs"],
             "shape": (f"ab n_a={SERVE_QUERY_N} n_b={SERVE_N} m={SERVE_M}, "
                       f"{sv['pairs']} pairs")},
+        "main_paper": {w: {f: r[f] for f in (
+            "n", "m", "launches", "ms", "plain_ms", "bound_ms",
+            "share_of_bound", "e2e_s", "host_prep_s")}
+            for w, r in paper["records"].items()},
+        "examples": {name: exs[name]["counts"]["natsa_mp"]
+                     for name in EXAMPLE_LAUNCHES},
         "anytime": {side: {f: an[side][f] for f in (
             "launches", "chunk_ms_sum", "chunk_ms_max", "plain_ms_sum",
             "bound_ms_sum", "rounds_s")} for side in ("self", "ab")},
@@ -5660,7 +5842,8 @@ def main() -> None:
                            for lay in LM_MESH_LAYOUTS
                            for key in ("counts", "decode_counts"))
                      + sum(o["counts"]["flash_attn"] for o in lm_sp.values())
-                     + lm_long["counts"]["flash_attn"]),
+                     + lm_long["counts"]["flash_attn"]
+                     + exs["counts"]["flash_attn"]),
         "launches_by_path": {"matrix_profile": s["counts"]["flash_attn"],
                              "ab_join": ab["counts"]["flash_attn"],
                              "flash_attention": fl["launches"],
@@ -5721,6 +5904,8 @@ def main() -> None:
                   "head dims, its scale is not 1/sqrt(D))",
         "lm_rwkv": "no kernel: RWKV6 has no attention layer; its chunked "
                    "WKV recurrence is torch ops, as the reference's is jnp",
+        "examples": {name: exs[name]["counts"]["flash_attn"]
+                     for name in EXAMPLE_LAUNCHES},
         "lm_train": {f: tr[f] for f in (
             "flash_launches", "flash_ms_per_launch",
             "plain_backward_ms_per_call", "train_step_s_median",

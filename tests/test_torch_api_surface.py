@@ -244,10 +244,11 @@ def test_scheduler_surface_matches_reference():
                 == params(getattr(rpart, name))), name
 
 
-# the LM substrate (ROADMAP.md §A9): reference names the port has no
-# counterpart for yet -> the item that brings them
+# the LM substrate (ROADMAP.md §A9) and the paper's workloads (§A10):
+# reference names the port has no counterpart for yet -> the item that
+# brings them
 LM_NOT_PORTED = {
-    "configs.base": {}, "configs": {}, "utils.flops": {},
+    "configs.base": {}, "configs": {}, "configs.natsa": {}, "utils.flops": {},
     "models.common": {}, "models.moe": {},
     "models.rwkv": {}, "models.mamba": {}, "models.attention": {},
     "models.transformer": {}, "models.steps": {},
@@ -359,10 +360,13 @@ def test_nothing_in_the_port_imports_jax_or_the_reference():
     import pathlib
     import re
 
-    root = pathlib.Path(__file__).resolve().parent.parent / "src" / \
-        "repro_torch"
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    files = [*(repo / "src" / "repro_torch").rglob("*.py"),
+             repo / "chip_smoke.py", *(repo / "examples").glob("*_torch.py")]
+    assert len(files) > 60 and len([f for f in files
+                                    if f.parent.name == "examples"]) >= 5
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-    hits = [str(p) for p in root.rglob("*.py") if pat.search(p.read_text())]
+    hits = [str(p) for p in files if pat.search(p.read_text())]
     assert hits == []
 
 
