@@ -833,11 +833,9 @@ def phase_device() -> tuple[str, str]:
 
 def reset_counts() -> None:
     """Every kernel's launch counter to 0 (just before a path is driven)."""
-    from repro_torch.kernels import flash_attn, natsa_mp
+    from repro_torch.utils import trace
 
-    natsa_mp.LAUNCHES = 0
-    for route in flash_attn.LAUNCHES_BY_ROUTE:
-        flash_attn.LAUNCHES_BY_ROUTE[route] = 0
+    trace.reset()
 
 
 def read_counts() -> dict:

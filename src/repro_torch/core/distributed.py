@@ -42,6 +42,7 @@ from repro_torch.core.matrix_profile import (
 )
 from repro_torch.core.zstats import CrossStats, ZStats
 from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, ops
+from repro_torch.utils import trace
 
 
 def pmax_profile(states: list[ProfileState]) -> ProfileState:
@@ -231,16 +232,19 @@ def _list_round(plan, devices: list[torch.device]):
     def round_fn(payload, runnings, k0s, k1s):
         locals_ = []
         for w, k0, k1 in _chunks(k0s, k1s, len(devices)):
-            locals_.append([_on(x, devices[0]) for x in
-                            _sweep(plan, payload.to(devices[w]), k0, k1)])
+            with trace.span("repro_torch.distributed.sweep"):
+                locals_.append([_on(x, devices[0]) for x in
+                                _sweep(plan, payload.to(devices[w]), k0,
+                                       k1)])
         if not locals_:            # every worker idle: nothing merges
             return runnings
         sides = zip(runnings, zip(*locals_))
-        if k > 1:
-            return tuple(run.merge(allreduce_topk(list(locs)))
+        with trace.span("repro_torch.distributed.merge"):
+            if k > 1:
+                return tuple(run.merge(allreduce_topk(list(locs)))
+                             for run, locs in sides)
+            return tuple(pmax_profile([run.merge(x) for x in locs])
                          for run, locs in sides)
-        return tuple(pmax_profile([run.merge(x) for x in locs])
-                     for run, locs in sides)
 
     return round_fn
 
@@ -258,13 +262,17 @@ def _mesh_round(plan, mesh):
         if not _chunks(k0s, k1s, size):
             return runnings
         k0, k1 = int(k0s[rank]), int(k1s[rank])
-        loc = (_sweep(plan, payload.to(dev), k0, k1) if k1 > k0
-               else tuple(_empty_like(run) for run in runnings))
-        if k > 1:
-            return tuple(run.merge(_allreduce_topk_group(x, group, size))
+        if k1 > k0:
+            with trace.span("repro_torch.distributed.sweep"):
+                loc = _sweep(plan, payload.to(dev), k0, k1)
+        else:
+            loc = tuple(_empty_like(run) for run in runnings)
+        with trace.span("repro_torch.distributed.merge"):
+            if k > 1:
+                return tuple(run.merge(_allreduce_topk_group(x, group, size))
+                             for run, x in zip(runnings, loc))
+            return tuple(_pmax_group(run.merge(x), group)
                          for run, x in zip(runnings, loc))
-        return tuple(_pmax_group(run.merge(x), group)
-                     for run, x in zip(runnings, loc))
 
     return round_fn
 

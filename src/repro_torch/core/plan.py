@@ -50,6 +50,7 @@ from repro_torch.core.precision import (
 from repro_torch.core.result import HarvestSpec
 from repro_torch.core.zstats import CrossStats, ZStats
 from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT
+from repro_torch.utils import trace
 from repro_torch.utils.device import resolve_device
 
 BACKENDS = ("engine", "rowstream", "kernel", "distributed")
@@ -186,112 +187,114 @@ def plan_sweep(window: int, l_a: int, l_b: int | None = None, *,
         nor a `reseed_every` other than its default or None (its `band`
         still aligns the chunks).
     """
-    m = int(window)
-    prec = as_precision(precision)
-    kind = "self" if l_b is None else "ab"
-    if exclusion is None:
-        excl = default_exclusion(m) if kind == "self" else 0
-    else:
-        excl = int(exclusion)
-    if isinstance(harvest, HarvestSpec):
-        spec = harvest if int(k) == 1 else dataclasses.replace(harvest,
-                                                               k=int(k))
-    else:
-        spec = HarvestSpec(sides=harvest, k=int(k))
-    topk = spec.k > 1
-
-    if topk and not normalize:
-        raise ValueError("top-k (k > 1) harvests are z-normalized only: the "
-                         "nonnorm engines carry no top-k accumulator")
-    if topk and backend == "kernel":
-        # the CUDA kernel's accumulators are k = 1: the band engine answers
-        # the same plan from one sweep; col_tile was the kernel's knob
-        backend = "engine"
-        col_tile = None
-    if topk and kind == "self" and excl == 0:
-        raise ValueError(
-            "self-join top-k needs exclusion >= 1: with exclusion=0 every "
-            "cell (i, i) is harvested by both the row and column sides, so "
-            "the union would hold the self-match twice")
-    if topk and spec.k > int(band):
-        raise ValueError(f"k={spec.k} exceeds band={band}: the band engines "
-                         "reduce top-k over the band axis; raise band or "
-                         "lower k")
-
-    band_options = (band != DEFAULT_BAND or clamp_rows is not True
-                    or reseed_every not in (DEFAULT_RESEED, None))
-    if backend is None:
-        if not topk and batch is None and normalize:
-            backend = ("engine" if band_options or prec.accum != "float32"
-                       else "kernel")
-        elif (kind == "ab" and normalize and batch is None and clamp_rows
-              and min(l_a, l_b) <= AB_ROWSTREAM_MAX_ROWS
-              and spec.k <= min(l_a, l_b)):
-            backend = "rowstream"
+    with trace.span("repro_torch.plan.plan_sweep"):
+        m = int(window)
+        prec = as_precision(precision)
+        kind = "self" if l_b is None else "ab"
+        if exclusion is None:
+            excl = default_exclusion(m) if kind == "self" else 0
         else:
+            excl = int(exclusion)
+        if isinstance(harvest, HarvestSpec):
+            spec = harvest if int(k) == 1 else dataclasses.replace(harvest,
+                                                                   k=int(k))
+        else:
+            spec = HarvestSpec(sides=harvest, k=int(k))
+        topk = spec.k > 1
+
+        if topk and not normalize:
+            raise ValueError("top-k (k > 1) harvests are z-normalized only: "
+                             "the nonnorm engines carry no top-k "
+                             "accumulator")
+        if topk and backend == "kernel":
+            # the CUDA kernel's accumulators are k = 1: the band engine answers
+            # the same plan from one sweep; col_tile was the kernel's knob
             backend = "engine"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if backend in ("rowstream", "kernel") and not normalize:
-        raise ValueError(f"backend {backend!r} is z-normalized only")
-    if backend == "rowstream" and kind != "ab":
-        raise ValueError("rowstream sweeps the AB rectangle; self-joins use "
-                         "the band engine (or the kernel)")
-    if backend == "rowstream" and spec.k > min(l_a, l_b):
-        raise ValueError(f"rowstream top-k needs k <= min(l_a, l_b) = "
-                         f"{min(l_a, l_b)}, got k={spec.k}")
-    if batch is not None and backend not in ("engine", "rowstream"):
-        raise ValueError("batched plans run the band engine or the AB "
-                         f"rowstream; backend {backend!r} cannot batch")
-    if batch is not None and not normalize:
-        raise ValueError("batched plans are z-normalized only")
-    if topk and col_tile is not None:
-        raise ValueError("the banked column accumulator (col_tile) is "
-                         "k=1-only; top-k plans accumulate flat")
-    if topk and not clamp_rows:
-        raise ValueError("clamp_rows=False is the k=1 A/B-comparison sweep; "
-                         "top-k plans always row-clamp")
-    if prec.reduced_stream and not normalize:
-        raise ValueError("16-bit streams are z-normalized only")
-    if not normalize and kind == "ab" and not prec.is_default:
-        raise ValueError("nonnorm AB joins run the fixed f32 pipeline")
-    if prec.reduced_stream and topk:
-        raise ValueError("top-k harvests with 16-bit streams are not "
-                         "supported: use f32 streams")
-    if backend in ("kernel", "distributed") and prec.accum != "float32":
-        raise ValueError(f"backend {backend!r} accumulates in f32; "
-                         f"accum={prec.accum!r} is engine/rowstream-only")
+            col_tile = None
+        if topk and kind == "self" and excl == 0:
+            raise ValueError(
+                "self-join top-k needs exclusion >= 1: with exclusion=0 "
+                "every cell (i, i) is harvested by both the row and column "
+                "sides, so the union would hold the self-match twice")
+        if topk and spec.k > int(band):
+            raise ValueError(f"k={spec.k} exceeds band={band}: the band "
+                             "engines reduce top-k over the band axis; raise "
+                             "band or lower k")
 
-    if backend == "kernel" and band_options:
-        raise NotImplementedError(
-            "the band engine's band, clamp_rows and reseed_every options "
-            "are not the CUDA kernel's: it never reseeds its f32 "
-            "covariance carry; plan backend='engine' (or leave "
-            "backend=None) for them")
-    if backend == "distributed" and not topk and (
-            clamp_rows is not True
-            or reseed_every not in (DEFAULT_RESEED, None)):
-        raise NotImplementedError(
-            "the band engine's clamp_rows and reseed_every options are not "
-            "the CUDA kernel's, which runs the k = 1 distributed chunks "
-            "(ROADMAP.md §C (15)): it never reseeds its f32 covariance "
-            "carry; band still sets the chunk alignment")
-    dev = resolve_device(device)
+        band_options = (band != DEFAULT_BAND or clamp_rows is not True
+                        or reseed_every not in (DEFAULT_RESEED, None))
+        if backend is None:
+            if not topk and batch is None and normalize:
+                backend = ("engine" if band_options or prec.accum != "float32"
+                           else "kernel")
+            elif (kind == "ab" and normalize and batch is None and clamp_rows
+                  and min(l_a, l_b) <= AB_ROWSTREAM_MAX_ROWS
+                  and spec.k <= min(l_a, l_b)):
+                backend = "rowstream"
+            else:
+                backend = "engine"
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        if backend in ("rowstream", "kernel") and not normalize:
+            raise ValueError(f"backend {backend!r} is z-normalized only")
+        if backend == "rowstream" and kind != "ab":
+            raise ValueError("rowstream sweeps the AB rectangle; self-joins "
+                             "use the band engine (or the kernel)")
+        if backend == "rowstream" and spec.k > min(l_a, l_b):
+            raise ValueError(f"rowstream top-k needs k <= min(l_a, l_b) = "
+                             f"{min(l_a, l_b)}, got k={spec.k}")
+        if batch is not None and backend not in ("engine", "rowstream"):
+            raise ValueError("batched plans run the band engine or the AB "
+                             f"rowstream; backend {backend!r} cannot batch")
+        if batch is not None and not normalize:
+            raise ValueError("batched plans are z-normalized only")
+        if topk and col_tile is not None:
+            raise ValueError("the banked column accumulator (col_tile) is "
+                             "k=1-only; top-k plans accumulate flat")
+        if topk and not clamp_rows:
+            raise ValueError("clamp_rows=False is the k=1 A/B-comparison "
+                             "sweep; top-k plans always row-clamp")
+        if prec.reduced_stream and not normalize:
+            raise ValueError("16-bit streams are z-normalized only")
+        if not normalize and kind == "ab" and not prec.is_default:
+            raise ValueError("nonnorm AB joins run the fixed f32 pipeline")
+        if prec.reduced_stream and topk:
+            raise ValueError("top-k harvests with 16-bit streams are not "
+                             "supported: use f32 streams")
+        if backend in ("kernel", "distributed") and prec.accum != "float32":
+            raise ValueError(f"backend {backend!r} accumulates in f32; "
+                             f"accum={prec.accum!r} is engine/rowstream-only")
 
-    # short side onto rows for the backends whose row axis is streamed
-    swap_ab = (kind == "ab" and backend in ("rowstream", "kernel")
-               and l_b < l_a)
-    if backend == "kernel" and kind == "self":
-        col_tile = _kernel_self_col_tile(l_a, excl, it, dt, col_tile)
+        if backend == "kernel" and band_options:
+            raise NotImplementedError(
+                "the band engine's band, clamp_rows and reseed_every options "
+                "are not the CUDA kernel's: it never reseeds its f32 "
+                "covariance carry; plan backend='engine' (or leave "
+                "backend=None) for them")
+        if backend == "distributed" and not topk and (
+                clamp_rows is not True
+                or reseed_every not in (DEFAULT_RESEED, None)):
+            raise NotImplementedError(
+                "the band engine's clamp_rows and reseed_every options are "
+                "not the CUDA kernel's, which runs the k = 1 distributed "
+                "chunks (ROADMAP.md §C (15)): it never reseeds its f32 "
+                "covariance carry; band still sets the chunk alignment")
+        dev = resolve_device(device)
 
-    return SweepPlan(kind=kind, l_a=int(l_a),
-                     l_b=None if l_b is None else int(l_b),
-                     window=m, exclusion=excl, normalize=normalize,
-                     harvest=spec, swap_ab=swap_ab, band=int(band),
-                     clamp_rows=clamp_rows, col_tile=col_tile,
-                     it=int(it), dt=int(dt), reseed_every=reseed_every,
-                     backend=backend, device=str(dev), batch=batch,
-                     precision=prec)
+        # short side onto rows for the backends whose row axis is streamed
+        swap_ab = (kind == "ab" and backend in ("rowstream", "kernel")
+                   and l_b < l_a)
+        if backend == "kernel" and kind == "self":
+            col_tile = _kernel_self_col_tile(l_a, excl, it, dt, col_tile)
+
+        return SweepPlan(kind=kind, l_a=int(l_a),
+                         l_b=None if l_b is None else int(l_b),
+                         window=m, exclusion=excl, normalize=normalize,
+                         harvest=spec, swap_ab=swap_ab, band=int(band),
+                         clamp_rows=clamp_rows, col_tile=col_tile,
+                         it=int(it), dt=int(dt), reseed_every=reseed_every,
+                         backend=backend, device=str(dev), batch=batch,
+                         precision=prec)
 
 
 def stats_dtypes_for(plan: SweepPlan) -> dict:
@@ -392,16 +395,17 @@ def execute(plan: SweepPlan, stats) -> SweepResult:
     (`zstats.stack_stats`) and sweeps each series as the unbatched plan
     would, so every stacked field equals the sequential calls bit for
     bit. Distributed plans run round by round through `round_executor`."""
-    if plan.batch is not None:
-        return _execute_batched(plan, stats)
-    _check_stats(plan, stats)
-    if plan.backend == "distributed":
-        raise ValueError("distributed plans execute round-by-round: build "
-                         "the round fn with round_executor(plan, devices) "
-                         "— AnytimeScheduler drives it")
-    if plan.kind == "self":
-        return _execute_self(plan, stats)
-    return _execute_ab(plan, stats)
+    with trace.span("repro_torch.plan.execute"):
+        if plan.batch is not None:
+            return _execute_batched(plan, stats)
+        _check_stats(plan, stats)
+        if plan.backend == "distributed":
+            raise ValueError("distributed plans execute round-by-round: "
+                             "build the round fn with round_executor(plan, "
+                             "devices) — AnytimeScheduler drives it")
+        if plan.kind == "self":
+            return _execute_self(plan, stats)
+        return _execute_ab(plan, stats)
 
 
 _RESULT_FIELDS = tuple(f.name for f in dataclasses.fields(SweepResult)
@@ -526,8 +530,9 @@ def _execute_self(plan: SweepPlan, stats) -> SweepResult:
     # (j > i), column half = left profile (j < i)
     corr_r, idx_r, corr_c, idx_c = ops.rowmax_from_stats(
         stats, excl=plan.exclusion, it=plan.it, dt=plan.dt)
-    corr, idx = ops._merge_corr(corr_r, idx_r, corr_c, idx_c)
-    res = SweepResult(profile_distance(corr, m), idx)
+    with trace.span("repro_torch.kernels.harvest"):
+        corr, idx = ops._merge_corr(corr_r, idx_r, corr_c, idx_c)
+        res = SweepResult(profile_distance(corr, m), idx)
 
     def fin_split():
         return dict(left_p=profile_distance(corr_c, m), left_i=idx_c,

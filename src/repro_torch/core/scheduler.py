@@ -57,6 +57,7 @@ from repro_torch.core.result import ProfileResult
 from repro_torch.core.validate import validate_series
 from repro_torch.core.zstats import (compute_cross_stats_host,
                                      compute_stats_host)
+from repro_torch.utils import trace
 from repro_torch.utils.device import resolve_device
 
 #: Checkpoint format written by `AnytimeScheduler.checkpoint`. Format 2 adds
@@ -78,37 +79,40 @@ def _load_checkpoint_file(path: str) -> tuple[dict, dict]:
     checkpoint. A format written by a NEWER version raises a plain
     ValueError: that is a caller error, not corruption.
     """
-    try:
-        with np.load(path, allow_pickle=False) as z:
-            arrays = {k: z[k] for k in z.files}
-    except Exception as e:  # BadZipFile, zlib errors, truncation, OSError
-        raise CheckpointCorruptionError(
-            f"unreadable checkpoint {path!r}: {e}") from e
-    if "meta" not in arrays:
-        raise CheckpointCorruptionError(
-            f"checkpoint {path!r} carries no meta record")
-    try:
-        meta = json.loads(str(arrays["meta"]))
-    except Exception as e:
-        raise CheckpointCorruptionError(
-            f"checkpoint {path!r} meta record is not valid JSON: {e}") from e
-    fmt = int(meta.get("format", 1))
-    if fmt > CHECKPOINT_FORMAT:
-        raise ValueError(
-            f"checkpoint {path!r} has format {fmt}, newer than this "
-            f"scheduler's supported format {CHECKPOINT_FORMAT}")
-    if fmt >= 2:
-        for name, want in meta.get("checksums", {}).items():
-            if name not in arrays:
-                raise CheckpointCorruptionError(
-                    f"checkpoint {path!r} is truncated: array {name!r} "
-                    f"listed in meta but missing from the archive")
-            got = _crc32(arrays[name])
-            if got != int(want):
-                raise CheckpointCorruptionError(
-                    f"checkpoint {path!r} failed checksum verification for "
-                    f"array {name!r} (stored {want}, recomputed {got})")
-    return arrays, meta
+    with trace.span("repro_torch.scheduler.checkpoint_read"):
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                arrays = {k: z[k] for k in z.files}
+        except Exception as e:  # BadZipFile, zlib errors, truncation, OSError
+            raise CheckpointCorruptionError(
+                f"unreadable checkpoint {path!r}: {e}") from e
+        if "meta" not in arrays:
+            raise CheckpointCorruptionError(
+                f"checkpoint {path!r} carries no meta record")
+        try:
+            meta = json.loads(str(arrays["meta"]))
+        except Exception as e:
+            raise CheckpointCorruptionError(
+                f"checkpoint {path!r} meta record is not valid JSON: "
+                f"{e}") from e
+        fmt = int(meta.get("format", 1))
+        if fmt > CHECKPOINT_FORMAT:
+            raise ValueError(
+                f"checkpoint {path!r} has format {fmt}, newer than this "
+                f"scheduler's supported format {CHECKPOINT_FORMAT}")
+        if fmt >= 2:
+            for name, want in meta.get("checksums", {}).items():
+                if name not in arrays:
+                    raise CheckpointCorruptionError(
+                        f"checkpoint {path!r} is truncated: array {name!r} "
+                        f"listed in meta but missing from the archive")
+                got = _crc32(arrays[name])
+                if got != int(want):
+                    raise CheckpointCorruptionError(
+                        f"checkpoint {path!r} failed checksum verification "
+                        f"for array {name!r} (stored {want}, recomputed "
+                        f"{got})")
+        return arrays, meta
 
 
 @dataclasses.dataclass
@@ -281,29 +285,32 @@ class AnytimeScheduler:
         (tick, attempt) the round raises `RoundFailure` BEFORE committing
         anything — the running state is untouched, so the caller
         (`run_supervised`) can simply retry."""
-        plan = self.state.plan
-        r = self.state.rounds_completed
-        if r >= plan.n_rounds:
+        with trace.span("repro_torch.scheduler.step_round"):
+            plan = self.state.plan
+            r = self.state.rounds_completed
+            if r >= plan.n_rounds:
+                return self.state
+            if (injector is not None
+                    and injector.round_should_fail(tick, attempt)):
+                raise RoundFailure(
+                    f"injected round dispatch failure (tick {tick}, "
+                    f"attempt {attempt})")
+            ids = plan.rounds[r]
+            fail_workers = fail_workers or set()
+            with trace.span("repro_torch.scheduler.bounds"):
+                k0s, k1s = self._round_bounds(ids)
+                for w in fail_workers:
+                    k0s[w] = self._k_empty
+                    k1s[w] = self._k_empty
+            merged, merged_b = self._run_round(self.state, k0s, k1s)
+            done = self.state.done.copy()
+            for w, c in enumerate(ids):
+                if c >= 0 and w not in fail_workers:
+                    done[c] = True
+            self.state = SchedulerState(plan=plan, done=done, profile=merged,
+                                        rounds_completed=r + 1,
+                                        profile_b=merged_b)
             return self.state
-        if injector is not None and injector.round_should_fail(tick, attempt):
-            raise RoundFailure(
-                f"injected round dispatch failure (tick {tick}, "
-                f"attempt {attempt})")
-        ids = plan.rounds[r]
-        k0s, k1s = self._round_bounds(ids)
-        fail_workers = fail_workers or set()
-        for w in fail_workers:
-            k0s[w] = self._k_empty
-            k1s[w] = self._k_empty
-        merged, merged_b = self._run_round(self.state, k0s, k1s)
-        done = self.state.done.copy()
-        for w, c in enumerate(ids):
-            if c >= 0 and w not in fail_workers:
-                done[c] = True
-        self.state = SchedulerState(plan=plan, done=done, profile=merged,
-                                    rounds_completed=r + 1,
-                                    profile_b=merged_b)
-        return self.state
 
     def run(self, max_rounds: int | None = None) -> SchedulerState:
         n = self.state.plan.n_rounds if max_rounds is None else max_rounds
@@ -541,71 +548,77 @@ class AnytimeScheduler:
         `CheckpointCorruptionError` propagate. Mismatched geometry
         (l/window/l_b), a pre-fusion checkpoint and a k mismatch raise
         ValueError."""
-        try:
-            arrays, meta = _load_checkpoint_file(path)
-        except CheckpointCorruptionError as e:
-            prev = path + ".prev"
-            if not os.path.exists(prev):
-                raise
-            warnings.warn(
-                f"checkpoint {path!r} failed verification ({e}); falling "
-                f"back to previous checkpoint {prev!r} — at most one "
-                f"checkpoint interval of progress is lost", stacklevel=2)
-            arrays, meta = _load_checkpoint_file(prev)
-        z = arrays
-        if meta["l"] != self.l or meta["window"] != self.window:
-            raise ValueError(
-                f"checkpoint geometry mismatch: it was written for "
-                f"l={meta['l']}, window={meta['window']} but this scheduler "
-                f"has l={self.l}, window={self.window}")
-        if meta.get("l_b") != self.l_b:
-            raise ValueError(
-                f"checkpoint geometry mismatch: it was written for "
-                f"l_b={meta.get('l_b')} but this scheduler has "
-                f"l_b={self.l_b}")
-        # pre-fusion checkpoints' done-chunks contributed only the row half
-        if not meta.get("fused"):
-            raise ValueError(
-                "checkpoint predates the fused two-sided engine; its "
-                "completed chunks lack column-half updates — recompute "
-                "from scratch")
-        # a k-mismatched resume would silently truncate or pad the sets
-        ck = int(meta.get("k", 1))
-        if ck != self.k:
-            raise ValueError(f"checkpoint carries k={ck} neighbour sets but "
-                             f"this scheduler was built with k={self.k}")
-        done = z["done"]
-        if self.mesh is not None:
-            # every rank read the same file, and none writes the next
-            # checkpoint before all have read this one
-            distributed._agree(self.mesh, "checkpoint", [
-                _crc32(z[name]) for name in ("done", "corr", "index")])
-        workers = n_workers or self.slots
-        if workers > self.slots:
-            raise ValueError(f"n_workers={workers} exceeds the scheduler's "
-                             f"{self.slots} worker slots")
-        state_cls = TopKState if self.k > 1 else ProfileState
-        home = self.home
+        with trace.span("repro_torch.scheduler.resume"):
+            try:
+                arrays, meta = _load_checkpoint_file(path)
+            except CheckpointCorruptionError as e:
+                prev = path + ".prev"
+                if not os.path.exists(prev):
+                    raise
+                warnings.warn(
+                    f"checkpoint {path!r} failed verification ({e}); falling "
+                    f"back to previous checkpoint {prev!r} — at most one "
+                    f"checkpoint interval of progress is lost", stacklevel=2)
+                arrays, meta = _load_checkpoint_file(prev)
+            z = arrays
+            if meta["l"] != self.l or meta["window"] != self.window:
+                raise ValueError(
+                    f"checkpoint geometry mismatch: it was written for "
+                    f"l={meta['l']}, window={meta['window']} but this "
+                    f"scheduler has l={self.l}, window={self.window}")
+            if meta.get("l_b") != self.l_b:
+                raise ValueError(
+                    f"checkpoint geometry mismatch: it was written for "
+                    f"l_b={meta.get('l_b')} but this scheduler has "
+                    f"l_b={self.l_b}")
+            # pre-fusion checkpoints' done-chunks contributed only the row half
+            if not meta.get("fused"):
+                raise ValueError(
+                    "checkpoint predates the fused two-sided engine; its "
+                    "completed chunks lack column-half updates — recompute "
+                    "from scratch")
+            # a k-mismatched resume would silently truncate or pad the sets
+            ck = int(meta.get("k", 1))
+            if ck != self.k:
+                raise ValueError(f"checkpoint carries k={ck} neighbour sets "
+                                 f"but this scheduler was built with "
+                                 f"k={self.k}")
+            done = z["done"]
+            if self.mesh is not None:
+                # every rank read the same file, and none writes the next
+                # checkpoint before all have read this one
+                with trace.span("repro_torch.scheduler.agree"):
+                    distributed._agree(self.mesh, "checkpoint", [
+                        _crc32(z[name])
+                        for name in ("done", "corr", "index")])
+            workers = n_workers or self.slots
+            if workers > self.slots:
+                raise ValueError(f"n_workers={workers} exceeds the "
+                                 f"scheduler's {self.slots} worker slots")
+            state_cls = TopKState if self.k > 1 else ProfileState
+            home = self.home
 
-        def state(corr, index):
-            return state_cls(torch.from_numpy(corr).to(home),
-                             torch.from_numpy(index).to(home))
+            def state(corr, index):
+                return state_cls(torch.from_numpy(corr).to(home),
+                                 torch.from_numpy(index).to(home))
 
-        profile = state(z["corr"], z["index"])
-        profile_b = None
-        if self.ab:
-            if "corr_b" not in z:
+            if self.ab and "corr_b" not in z:
                 raise ValueError("AB checkpoint must carry the B-side state")
-            profile_b = state(z["corr_b"], z["index_b"])
-        base = AnytimePlan(l=self.l, exclusion=self.exclusion,
-                           n_workers=workers,
-                           chunks=tuple(tuple(c) for c in meta["chunks"]),
-                           rounds=(), l_b=self.l_b)
-        plan = partition.replan_remaining(base, done, workers)
-        self._round_fn = self._make_round_fn(plan)
-        self.plan = plan
-        self.state = SchedulerState(plan=plan, done=done, profile=profile,
-                                    rounds_completed=0, profile_b=profile_b)
+            with trace.span("repro_torch.scheduler.upload"):
+                profile = state(z["corr"], z["index"])
+                profile_b = (state(z["corr_b"], z["index_b"]) if self.ab
+                             else None)
+            base = AnytimePlan(l=self.l, exclusion=self.exclusion,
+                               n_workers=workers,
+                               chunks=tuple(tuple(c) for c in meta["chunks"]),
+                               rounds=(), l_b=self.l_b)
+            with trace.span("repro_torch.scheduler.replan"):
+                plan = partition.replan_remaining(base, done, workers)
+                self._round_fn = self._make_round_fn(plan)
+            self.plan = plan
+            self.state = SchedulerState(plan=plan, done=done,
+                                        profile=profile, rounds_completed=0,
+                                        profile_b=profile_b)
 
     # -- results -------------------------------------------------------------
 
@@ -621,27 +634,30 @@ class AnytimeScheduler:
         after `run()`; monotonically improving after any round). Top-k
         schedules fill `topk_p/topk_i` (and the B side for AB joins); the
         left/right split is not carried through rounds."""
-        kw = dict(kind="ab" if self.ab else "self", window=self.window,
-                  exclusion=self.exclusion, k=self.k, backend="distributed",
-                  fraction_done=self.state.fraction_done)
-        if self.k > 1:
-            # convert the (l, k) state ONCE; slot 0 is then bitwise-
-            # consistent with topk_p[..., 0] by construction
-            dk = self.state.profile.to_distance(self.window)
-            p, i = dk[..., 0], self.state.profile.index[..., 0]
-            kw.update(topk_p=dk, topk_i=self.state.profile.index)
-        else:
-            p, i = self._side(self.state.profile)
-        if self.ab:
+        with trace.span("repro_torch.scheduler.result"):
+            kw = dict(kind="ab" if self.ab else "self", window=self.window,
+                      exclusion=self.exclusion, k=self.k,
+                      backend="distributed",
+                      fraction_done=self.state.fraction_done)
             if self.k > 1:
-                dkb = self.state.profile_b.to_distance(self.window)
-                kw.update(b_p=dkb[..., 0],
-                          b_i=self.state.profile_b.index[..., 0],
-                          b_topk_p=dkb, b_topk_i=self.state.profile_b.index)
+                # convert the (l, k) state ONCE; slot 0 is then bitwise-
+                # consistent with topk_p[..., 0] by construction
+                dk = self.state.profile.to_distance(self.window)
+                p, i = dk[..., 0], self.state.profile.index[..., 0]
+                kw.update(topk_p=dk, topk_i=self.state.profile.index)
             else:
-                bp, bi = self._side(self.state.profile_b)
-                kw.update(b_p=bp, b_i=bi)
-        return ProfileResult(p=p, i=i, **kw)
+                p, i = self._side(self.state.profile)
+            if self.ab:
+                if self.k > 1:
+                    dkb = self.state.profile_b.to_distance(self.window)
+                    kw.update(b_p=dkb[..., 0],
+                              b_i=self.state.profile_b.index[..., 0],
+                              b_topk_p=dkb,
+                              b_topk_i=self.state.profile_b.index)
+                else:
+                    bp, bi = self._side(self.state.profile_b)
+                    kw.update(b_p=bp, b_i=bi)
+            return ProfileResult(p=p, i=i, **kw)
 
     def distance_profile(self) -> ProfileResult:
         """The same `ProfileResult` as `result()`."""

@@ -32,12 +32,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils import trace
 
 NEG_INF = -1e30
 
-# CUDA kernel launches in this process, per kernel (bumped per launch);
-# `LAUNCHES` reads their total
-LAUNCHES_BY_ROUTE = {"wgmma": 0, "fma": 0}
+ROUTES = ("wgmma", "fma")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -48,8 +47,14 @@ _ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P]
 
 
 def __getattr__(name):
-    if name == "LAUNCHES":
-        return sum(LAUNCHES_BY_ROUTE.values())
+    # CUDA kernel launches in this process: `LAUNCHES_BY_ROUTE` per route,
+    # the counters `flash_attn.<route>` of `utils.trace`; `LAUNCHES` their
+    # total
+    if name in ("LAUNCHES", "LAUNCHES_BY_ROUTE"):
+        counts = trace.counters()
+        by_route = {r: counts.get(f"flash_attn.{r}", 0) for r in ROUTES}
+        return by_route if name == "LAUNCHES_BY_ROUTE" else sum(
+            by_route.values())
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -156,7 +161,7 @@ def _flash_attention_cuda(q, k, v, *, causal):
     if rc != 0:
         raise RuntimeError(f"flash_attn {route} kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES_BY_ROUTE[route] += 1
+    trace.count(f"flash_attn.{route}")
     return out
 
 

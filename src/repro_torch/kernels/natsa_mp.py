@@ -28,16 +28,29 @@ import torch
 
 from repro_torch.kernels import DEFAULT_IT
 from repro_torch.kernels import _build
+from repro_torch.utils import trace
 
 NEG = -2.0  # correlations live in [-1, 1]
-
-LAUNCHES = 0  # CUDA kernel launches in this process (bumped per launch)
 
 _STREAM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # the CUDA kernel's tiling (csrc/natsa_mp.cu: DB, TS)
 DIAGONALS_PER_BLOCK = 128
 STEPS_PER_STAGE = 64
+
+
+def __getattr__(name):
+    # `LAUNCHES`: CUDA kernel launches in this process, the counter
+    # `natsa.launches` of `utils.trace`
+    if name == "LAUNCHES":
+        return trace.counters().get("natsa.launches", 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def launch_blocks(n_diag: int) -> int:
+    """The kernel's grid for `n_diag` diagonals: one one-warp block per
+    DIAGONALS_PER_BLOCK of them."""
+    return -(-n_diag // DIAGONALS_PER_BLOCK)
 
 
 def row_harvest(tile: torch.Tensor):
@@ -128,7 +141,6 @@ def rowmax_profile_ab(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
 
 def _rowmax_profile_ab_cuda(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
                             k_start, k_end, l_i, l_j, jpad):
-    global LAUNCHES
     lib = _lib()
     streams = (df_i, dg_i, invn_i, df_j, dg_j, invn_j)
     dev = df_i.device
@@ -156,25 +168,27 @@ def _rowmax_profile_ab_cuda(df_i, dg_i, invn_i, df_j, dg_j, invn_j, cov0, *,
     if col_len >= 2 ** 31:
         raise ValueError(f"column space {col_len} exceeds int32 indexing")
 
-    row_acc = torch.full((rows,), _PACKED_INIT, dtype=torch.int64,
-                         device=dev)
-    col_acc = torch.full((col_len,), _PACKED_INIT, dtype=torch.int64,
-                         device=dev)
-    corr = torch.empty((rows,), dtype=torch.float32, device=dev)
-    idx = torch.empty((rows,), dtype=torch.int32, device=dev)
-    col_corr = torch.empty((col_len,), dtype=torch.float32, device=dev)
-    col_idx = torch.empty((col_len,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.natsa_mp_rowmax_ab(
-            _STREAM_CODES[dtype], *(x.data_ptr() for x in streams),
-            cov0.data_ptr(), rows, n_diag, jp, int(k_start), int(k_end),
-            int(l_i), int(l_j), int(jpad), col_len, row_acc.data_ptr(),
-            col_acc.data_ptr(), corr.data_ptr(), idx.data_ptr(),
-            col_corr.data_ptr(), col_idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    with trace.span("repro_torch.kernels.natsa_launch"):
+        row_acc = torch.full((rows,), _PACKED_INIT, dtype=torch.int64,
+                             device=dev)
+        col_acc = torch.full((col_len,), _PACKED_INIT, dtype=torch.int64,
+                             device=dev)
+        corr = torch.empty((rows,), dtype=torch.float32, device=dev)
+        idx = torch.empty((rows,), dtype=torch.int32, device=dev)
+        col_corr = torch.empty((col_len,), dtype=torch.float32, device=dev)
+        col_idx = torch.empty((col_len,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.natsa_mp_rowmax_ab(
+                _STREAM_CODES[dtype], *(x.data_ptr() for x in streams),
+                cov0.data_ptr(), rows, n_diag, jp, int(k_start), int(k_end),
+                int(l_i), int(l_j), int(jpad), col_len, row_acc.data_ptr(),
+                col_acc.data_ptr(), corr.data_ptr(), idx.data_ptr(),
+                col_corr.data_ptr(), col_idx.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"natsa_mp kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    trace.count("natsa.launches")
+    trace.count("natsa.blocks", launch_blocks(n_diag))
     return corr, idx, col_corr, col_idx
 
 

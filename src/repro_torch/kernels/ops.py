@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.zstats import CrossStats, ZStats
 from repro_torch.kernels import DEFAULT_DT, DEFAULT_IT, natsa_mp
+from repro_torch.utils import trace
 
 NEG = natsa_mp.NEG
 
@@ -56,11 +57,13 @@ def _pad_streams(stats: ZStats, it: int, dt: int, excl: int,
     n_diag_total = max(k_end - excl, 1)
     n_diags = -(-n_diag_total // dt)
     pad = n_rows * it + excl + n_diags * dt - l
-    # seeds feed the f32 covariance carry directly, whatever the streams' dtype
-    cov0p = _pad(stats.cov0.float()[excl:k_end], 0,
-                 n_diags * dt - n_diag_total)
-    df, dg, invn = (_pad(_kernel_stream(x), 0, pad)
-                    for x in (stats.df, stats.dg, stats.invn))
+    with trace.span("repro_torch.kernels.pad"):
+        # seeds feed the f32 covariance carry directly, whatever the
+        # streams' dtype
+        cov0p = _pad(stats.cov0.float()[excl:k_end], 0,
+                     n_diags * dt - n_diag_total)
+        df, dg, invn = (_pad(_kernel_stream(x), 0, pad)
+                        for x in (stats.df, stats.dg, stats.invn))
     return df, dg, invn, cov0p, n_rows, n_diags, l
 
 

@@ -19,6 +19,7 @@ import torch
 from repro.kernels.flash_attn import flash_attention as ref_flash
 from repro.kernels.flash_attn import ref_attention
 from repro_torch.kernels import _build, flash_attn
+from repro_torch.utils import trace
 
 SHAPES = [
     (2, 2, 128, 32, 64, 64, True),
@@ -176,8 +177,10 @@ def test_element_ratio_is_one_bf16_rounding():
 
 
 def test_launches_is_the_sum_over_routes(monkeypatch):
-    monkeypatch.setitem(flash_attn.LAUNCHES_BY_ROUTE, "wgmma", 3)
-    monkeypatch.setitem(flash_attn.LAUNCHES_BY_ROUTE, "fma", 2)
+    monkeypatch.setattr(trace, "_COUNTS", {})
+    trace.count("flash_attn.wgmma", 3)
+    trace.count("flash_attn.fma", 2)
+    assert flash_attn.LAUNCHES_BY_ROUTE == {"wgmma": 3, "fma": 2}
     assert flash_attn.LAUNCHES == 5
 
 
